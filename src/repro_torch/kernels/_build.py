@@ -37,6 +37,8 @@ ENTRY_POINTS = {
     "cubic_solve": ("cubic_solve_launch",
                     [_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _I, _P]),
     "topk_compress": ("topk_compress_launch", [_P, _P, _P, _I, _I, _I, _P]),
+    "krum_scores": ("krum_scores_launch", [_P, _P, _P, _P, _I, _I, _I, _P]),
+    "sort_workers": ("sort_workers_launch", [_P, _P, _I, _I, _P]),
 }
 
 _lock = threading.Lock()

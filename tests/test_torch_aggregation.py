@@ -1,17 +1,23 @@
 """The center's rules and the Byzantine attacks against the reference's.
 
-``norm_trim`` is pinned on its keep mask exactly and on its aggregate with
-an absolute tolerance (sums in another order differ in the last bits of
-small components, so a relative tolerance alone is the wrong test)."""
+Every rule is pinned on its keep mask exactly and on its aggregate with an
+absolute tolerance (sums in another order differ in the last bits of small
+components, so a relative tolerance alone is the wrong test)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.api import make_aggregator as jax_make_aggregator
+from repro.api.aggregators import AGGREGATOR_SPECS as JAX_AGGREGATOR_SPECS
 from repro.api import make_attack as jax_make_attack
 from repro.kernels.ref import sparse_aggregate_ref
-from repro_torch.api import SpecError, make_aggregator, make_attack
+from repro_torch.api import (
+    AGGREGATOR_SPECS,
+    SpecError,
+    make_aggregator,
+    make_attack,
+)
 from repro_torch.kernels import SPARSE_SCATTER_MAX_D, aggregate_sparse
 
 torch.set_num_threads(1)
@@ -23,11 +29,16 @@ def _updates(m, d, seed):
     return (rng.standard_normal((m, d)) * scale).astype(np.float32)
 
 
-@pytest.mark.parametrize("spec", ["mean", "norm_trim:0.3", "norm_trim:0.45"])
+@pytest.mark.parametrize("spec", [
+    "mean", "norm_trim:0.3", "norm_trim:0.45", "krum:1", "krum_kernel:2",
+    "trimmed_mean:0.25", "trimmed_mean_kernel:0.1", "coordinate_median",
+    "coordinate_median_kernel"])
 @pytest.mark.parametrize("m", [4, 9, 20])
 def test_dense_rules_match_reference(spec, m):
     u = _updates(m, 30, m)
-    u[1] = u[0]                                   # a norm tie: index order
+    # a norm tie and a tie in every coordinate: index order; for krum the
+    # two copies score the same, and the first one wins in both
+    u[1] = u[0]
     rag, rkeep = jax_make_aggregator(spec)(jnp.asarray(u))
     oag, okeep = make_aggregator(spec)(torch.from_numpy(u))
     np.testing.assert_array_equal(okeep.numpy(), np.asarray(rkeep))
@@ -70,16 +81,25 @@ def test_aggregate_sparse_matches_reference_oracle_and_raises_above_bound():
 
 
 def test_registry_grammar_and_later_slices():
+    """Every head of the reference's grammar resolves to the same spec and
+    checks resilience with the reference's conditions and messages."""
+    assert AGGREGATOR_SPECS == JAX_AGGREGATOR_SPECS
     assert make_aggregator("norm_trim:0.25").check_resilience(0.2, 20) is None
     assert "β > α" in make_aggregator("norm_trim:0.2").check_resilience(0.2, 20)
-    with pytest.raises(SpecError):
-        make_aggregator("norm_trim:1.5")
-    with pytest.raises(SpecError):
-        make_aggregator("nonsense")
-    for later in ("krum:2", "trimmed_mean:0.1", "coordinate_median",
-                  "krum_kernel:2"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            make_aggregator(later)
+    for spec in ("norm_trim:1.5", "nonsense", "krum:-1", "krum:x",
+                 "trimmed_mean:0.5", "trimmed_mean:0", "krum_kernel:1.5"):
+        with pytest.raises(SpecError):
+            make_aggregator(spec)
+    for spec in ("mean", "norm_trim:0.25", "krum", "krum:4", "krum_kernel",
+                 "krum_kernel:4", "trimmed_mean", "trimmed_mean:0.25",
+                 "trimmed_mean_kernel:0.25", "coordinate_median",
+                 "coordinate_median_kernel"):
+        ref, out = jax_make_aggregator(spec), make_aggregator(spec)
+        assert (out.spec, out.name) == (ref.spec, ref.name)
+        assert out.supports_sparse == ref.supports_sparse
+        for alpha, m in ((0.2, 20), (0.25, 8), (0.3, 10), (0.45, 9)):
+            assert out.check_resilience(alpha, m) == \
+                ref.check_resilience(alpha, m), (spec, alpha, m)
 
 
 @pytest.mark.parametrize("spec", ["negative:0.9", "flipped_label"])

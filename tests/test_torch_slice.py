@@ -24,6 +24,20 @@ VARIANTS = {
     "remark5-momentum": {"exact_gradient": True, "grad_compressor": "topk:0.5",
                          "momentum": 0.5, "downlink_compressor": "topk:0.5"},
 }
+# the comparison rules: EF21 under the negative attack, and with no error
+# feedback under flipped labels, where the uplink could hand over payloads
+# but these rules keep the dense center
+for _agg in ("krum_kernel:2", "trimmed_mean_kernel:0.375",
+             "coordinate_median"):
+    _name = _agg.partition(":")[0]
+    VARIANTS[f"{_name}-negative"] = {"aggregator": _agg}
+    VARIANTS[f"{_name}-flipped"] = {"aggregator": _agg,
+                                    "attack": "flipped_label",
+                                    "error_feedback": "none"}
+# the coordinate-wise rules' soft keep is the fraction of coordinates each
+# worker contributed to; float rounding may flip the rank of one near-equal
+# coordinate between the two runs, which moves that fraction by 1/d
+SOFT_KEEP = ("trimmed_mean", "coordinate_median")
 
 
 @pytest.mark.parametrize("variant", sorted(VARIANTS))
@@ -45,6 +59,7 @@ def test_three_rounds_match_reference(variant):
                      problem=interop.problem_from_reference(jp, device="cpu"))
     tw, thist = exp.run(3)
     sparse = variant.startswith("sparse")
+    keep_atol = (1.0 / jp.dim if variant.startswith(SOFT_KEEP) else 0.0)
     assert exp.algo._use_sparse_center is sparse
     assert jalgo._use_sparse_center is sparse
     assert exp.algo.bits_per_step() == jalgo.bits_per_step()
@@ -65,7 +80,8 @@ def test_three_rounds_match_reference(variant):
     for r in range(3):
         w, v, st, info = algo.step(w, exp.problem.X_workers,
                                    exp.problem.y_workers, None, v, st)
-        np.testing.assert_array_equal(info["keep"].numpy(), jkeeps[r])
+        np.testing.assert_allclose(info["keep"].numpy(), jkeeps[r],
+                                   rtol=0, atol=keep_atol)
 
 
 def test_spec_round_trips_and_validates():
@@ -93,7 +109,7 @@ def test_spec_round_trips_and_validates():
 
 @pytest.mark.parametrize("override", [
     {"runtime": "async"}, {"runtime": "mesh"},
-    {"solver": "byzantine_pgd"}, {"aggregator": "krum:2"},
+    {"solver": "byzantine_pgd"}, {"compressor": "randk:0.1"},
     {"compressor": "signnorm"}, {"compressor": "adaptive_topk:0.05:0.5"},
     {"problem": "matrix-factor:10:2", "m_workers": 4},
     {"problem": "synthetic-logistic:8000:2000", "m_workers": 4},
