@@ -28,15 +28,28 @@ From the root of a checkout, with one card.  In order it:
    just before each run and read just after; the ledger's integers, a
    decreasing loss and one launch a round of each kernel the run uses (and
    none of the others) are asserted;
-5. runs a small spec on the card and on the CPU (plain versions), over the
-   same data, and holds the two against each other, for norm_trim and each
-   kernel head of the comparison rules;
-6. times each kernel call, its plain version and, where one PyTorch call
-   computes the same function (``torch.topk``, ``torch.sort``), that call
-   with CUDA events (``ms``, ``plain_ms``, ``library_ms``: per call, host
-   launch overhead included), the kernels alone with ``torch.profiler``
-   (``device_ms``), and works out each kernel's bound from this run's
-   inputs; then profiles one w8a round of each spec.
+5. at gisette's width (d = 5000, LIBSVM's ``gisette``: 6000 rows, here a
+   synthetic twin over m = 20 workers of 300 rows, :data:`DRIVE_A`), holds
+   the cubic solve against its plain version on the first round's g and H,
+   the sharded top-k against its plain version bit for bit over
+   :data:`SHARDED_TOPK_SHAPES` (the round's own (20, 5000) updates, normal
+   and tie-heavy rows), and the gridded sparse center bit for bit over
+   :data:`SPARSE_AGG_SHAPES` (the round's own (20, 500) payloads, with 0/1
+   weights and without; duplicates within rows); then drives A (sparse
+   center, 3 rounds) and B (adaptive top-k with EF21, 4 rounds), with the
+   same checks as the w8a drives, the bits of B following its k, which
+   must move;
+6. runs small specs on the card and on the CPU (plain versions), over the
+   same data, and holds the two against each other: for norm_trim and each
+   kernel head of the comparison rules, and at d = 4352 for the sharded
+   top-k and the gridded center (:data:`SMALL_LARGE_D`, keep masks too);
+7. times each kernel call, its plain version and, where one PyTorch call
+   computes the same function (``torch.topk``, ``torch.sort``,
+   ``index_add_``), that call with CUDA events (``ms``, ``plain_ms``,
+   ``library_ms``: per call, host launch overhead included), the kernels
+   alone with ``torch.profiler`` (``device_ms``), and works out each
+   kernel's bound from this run's inputs; then profiles one round of
+   drive A and of each w8a spec.
 
 The line before the last carries the card's name and power limit, the one
 before it the kernels' JSON record; the last line is
@@ -77,6 +90,39 @@ SMALL = dict(problem="synthetic-logistic:1600:40", m_workers=8,
              attack="negative:0.9", alpha=0.25)
 SMALL_RULES = ("norm_trim:0.4", "krum_kernel:2", "trimmed_mean_kernel:0.375",
                "coordinate_median_kernel")
+# The d = 5000 path: gisette's width (LIBSVM's ``gisette``, 6000 training
+# rows and 5000 features), a synthetic twin over m = 20 workers, 300 rows
+# each.  A: the sparse center, through the sharded top-k and the gridded
+# center; B: adaptive top-k through the sharded kernel at a moving k, EF21,
+# a dense center
+GISETTE = dict(problem="synthetic-logistic:6000:5000", m_workers=20,
+               runtime="paper", solver="cubic_newton", M=10.0, gamma=1.0,
+               eta=1.0, solver_tol=1e-6, solver_iters=500,
+               aggregator="norm_trim:0.3", alpha=0.2)
+DRIVE_A = dict(GISETTE, compressor="topk_kernel:0.1", error_feedback="none",
+               attack="flipped_label")
+DRIVE_B = dict(GISETTE, compressor="adaptive_topk_kernel:0.05:0.5",
+               ef_damping=0.75, attack="negative:0.9")
+GISETTE_D = 5000
+# exact wire integers per round, k·(32 + index_bits(5000) = 13) per worker
+# up, 32 · 5000 down: 20 · 500 · 45 for A
+GISETTE_DOWNLINK_BITS = 32 * GISETTE_D
+
+
+def gisette_uplink_bits(k: int) -> int:
+    return 20 * k * (32 + 13)
+
+
+SHARDED_TOPK_SHAPES = ((20, 1409, 140), (20, 5000, 500), (20, 5000, 4999),
+                       (2, 65536, 6553), (3, 65537, 1))
+# (m, k, d, duplicate indices within rows)
+SPARSE_AGG_SHAPES = ((20, 500, 5000, False), (8, 64, 8192, True),
+                     (3, 16, 65537, False))
+# a spec past both single-tile bounds, small enough for the CPU
+SMALL_LARGE_D = dict(problem="synthetic-logistic:512:4352", m_workers=4,
+                     solver_iters=100, compressor="topk_kernel:0.1",
+                     error_feedback="none", aggregator="norm_trim:0.4",
+                     attack="flipped_label", alpha=0.25)
 CUBIC_ATOL = 1e-5
 # the center's kernels: the w8a stack, odd shapes, m = 256 (the reference
 # kernel's on-chip bound) and m > 256
@@ -123,10 +169,11 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def kernel_device_ms(fn, reps: int, kernel: str):
-    """Mean device milliseconds of the CUDA kernel whose name contains
-    ``kernel``, per call of ``fn``, from a ``torch.profiler`` trace (None
-    when the trace shows no device time for it)."""
+def device_ms_by_name(fn, reps: int, names) -> dict:
+    """Mean device milliseconds per call of ``fn`` of the device work whose
+    name contains each of ``names`` (None where the trace shows none), and
+    under ``"all"`` of every device event of the call, from a
+    ``torch.profiler`` trace."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -136,12 +183,22 @@ def kernel_device_ms(fn, reps: int, kernel: str):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total_us = 0.0
+    totals = dict.fromkeys((*names, "all"), 0.0)
     for evt in prof.key_averages():
-        if kernel in evt.key:
-            total_us += getattr(evt, "device_time_total",
-                                getattr(evt, "cuda_time_total", 0.0))
-    return total_us / 1e3 / reps if total_us > 0 else None
+        us = getattr(evt, "device_time_total",
+                     getattr(evt, "cuda_time_total", 0.0))
+        totals["all"] += us
+        for name in names:
+            if name in evt.key:
+                totals[name] += us
+    return {name: (us / 1e3 / reps if us > 0 else None)
+            for name, us in totals.items()}
+
+
+def kernel_device_ms(fn, reps: int, kernel: str):
+    """Mean device milliseconds of the CUDA kernel whose name contains
+    ``kernel``, per call of ``fn`` (None when the trace shows none)."""
+    return device_ms_by_name(fn, reps, (kernel,))[kernel]
 
 
 def bound_ms(n_bytes: float, n_ops: float):
@@ -151,9 +208,9 @@ def bound_ms(n_bytes: float, n_ops: float):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def w8a_solver_inputs(exp):
-    """The cubic solve's inputs in the w8a run's first round: every
-    worker's g and H at w0, and the step sizes."""
+def first_round_solver_inputs(exp):
+    """The cubic solve's inputs in a run's first round: every worker's g
+    and H at w0, and the step sizes."""
     from repro_torch.kernels import default_lr
 
     algo, p = exp.algo, exp.problem
@@ -176,7 +233,7 @@ def check_kernels(exp):
         topk_compress_plain,
     )
 
-    g, H, lr, cfg = w8a_solver_inputs(exp)
+    g, H, lr, cfg = first_round_solver_inputs(exp)
     s0 = torch.zeros_like(g)
     kw = dict(M=cfg.M, gamma=cfg.gamma, tol=cfg.solver_tol,
               max_iters=cfg.solver_iters)
@@ -338,11 +395,114 @@ def check_agg_kernels(center):
             "sort_err": float((srt - sort_workers_plain(center)).abs().max())}
 
 
+def check_gisette_kernels():
+    """At gisette's width (:data:`DRIVE_A`'s data), the kernels against
+    their plain versions on the card: the cubic solve on the first round's
+    g and H (atol :data:`CUBIC_ATOL`); the sharded top-k bit for bit over
+    :data:`SHARDED_TOPK_SHAPES` (the solve's (20, 5000) output, normal rows
+    and rows rounded to halves, ±0 among them); the gridded center bit for
+    bit over :data:`SPARSE_AGG_SHAPES` (the solve's top-k payloads, with the
+    norm_trim keep as 0/1 weights and without).  Returns the inputs and
+    errors for the timings."""
+    import torch
+
+    from repro_torch.api import ExperimentSpec
+    from repro_torch.core.aggregation import norm_trim_keep
+    from repro_torch.kernels import (
+        aggregate_sparse_gridded,
+        aggregate_sparse_plain,
+        cubic_solve,
+        cubic_solve_plain,
+        topk_compress_plain,
+        topk_compress_sharded,
+    )
+
+    def bits(t):
+        return t.view(torch.int32)
+
+    exp = ExperimentSpec(**DRIVE_A).build()
+    exp.algo._ensure_channels(exp.problem.dim, exp.problem.m_workers)
+    g, H, lr, cfg = first_round_solver_inputs(exp)
+    s0 = torch.zeros_like(g)
+    kw = dict(M=cfg.M, gamma=cfg.gamma, tol=cfg.solver_tol,
+              max_iters=cfg.solver_iters)
+    s, iters = cubic_solve(g, H, s0, lr, **kw)
+    torch.cuda.synchronize()
+    ps, piters = cubic_solve_plain(g, H, s0, lr, **kw)
+    cubic_err = float((s - ps).abs().max())
+    check(s.shape == (20, GISETTE_D) and bool(torch.isfinite(s).all()),
+          "finite d = 5000 solve")
+    check(cubic_err <= CUBIC_ATOL, ("cubic at d = 5000", cubic_err))
+    n_iters = int(iters.sum())
+    cubic_ms = cuda_ms(lambda: cubic_solve(g, H, s0, lr, **kw), reps=2,
+                       warmup=1)
+    cubic_plain_ms = cuda_ms(lambda: cubic_solve_plain(g, H, s0, lr, **kw),
+                             reps=1, warmup=0)
+    log(f"cubic_solve at d = 5000 vs plain: max |Δs| = {cubic_err:.3e}, "
+        f"iterations {iters.tolist()} vs {piters.tolist()}; {cubic_ms:.3f} "
+        f"ms a call, plain {cubic_plain_ms:.3f} ms")
+    del g, H, lr, s0, ps
+    torch.cuda.empty_cache()
+
+    k = exp.algo.uplink.compressor.k
+    check(k == 500, k)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    topk_err = 0.0
+    for m, d, kk in SHARDED_TOPK_SHAPES:
+        normal = torch.randn(m, d, generator=gen, device="cuda")
+        stacks = {"normal": normal, "halves": torch.round(normal * 2) / 2}
+        if (m, d) == tuple(s.shape):
+            stacks["d = 5000 updates"] = s
+        for kind, x in stacks.items():
+            v, i = topk_compress_sharded(x, kk)
+            torch.cuda.synchronize()
+            pv, pi = topk_compress_plain(x, kk)
+            check(torch.equal(i, pi) and torch.equal(bits(v), bits(pv)),
+                  ("topk_sharded vs plain", m, d, kk, kind))
+            topk_err = max(topk_err, float((v - pv).abs().max()))
+    log(f"topk_compress_sharded equals its plain version bit for bit over "
+        f"{SHARDED_TOPK_SHAPES} (normal, halves; the d = 5000 updates)")
+
+    vals, idx = topk_compress_sharded(s, k)
+    keep, _ = norm_trim_keep(torch.linalg.vector_norm(vals, dim=1),
+                             exp.algo.aggregator.beta)
+    agg_err = 0.0
+    for m, kk, d, dup in SPARSE_AGG_SHAPES:
+        if (m, kk, d) == (*vals.shape, GISETTE_D):
+            pv, pi = vals, idx
+        else:
+            pv = torch.randn(m, kk, generator=gen, device="cuda")
+            hi = 50 if dup else d
+            pi = (torch.randint(0, hi, (m, kk), generator=gen, device="cuda")
+                  if dup else torch.argsort(torch.rand(
+                      m, d, generator=gen, device="cuda"), dim=1)[:, :kk])
+            pi = pi.to(torch.int32)
+        w01 = (keep if m == keep.shape[0] else
+               (torch.rand(m, generator=gen, device="cuda") < 0.5).float())
+        for w in (None, w01):
+            out = aggregate_sparse_gridded(pv, pi, d, w)
+            torch.cuda.synchronize()
+            want = aggregate_sparse_plain(pv, pi, d, w)
+            check(torch.equal(bits(out), bits(want)),
+                  ("sparse_agg vs plain", m, kk, d, dup, w is None))
+            agg_err = max(agg_err, float((out - want).abs().max()))
+    log(f"aggregate_sparse_gridded equals its plain version bit for bit over "
+        f"{SPARSE_AGG_SHAPES} (the d = 5000 payloads; 0/1 weights and none)")
+    return {"s": s, "k": k, "vals": vals, "idx": idx, "keep": keep,
+            "topk_err": topk_err, "agg_err": agg_err,
+            "cubic": {"shape": [20, GISETTE_D], "iterations": n_iters,
+                      "max_abs_err": cubic_err, "ms": cubic_ms,
+                      "plain_ms": cubic_plain_ms}}
+
+
 def drive(spec_kw: dict, rounds: int, *, sparse: bool,
-          kernels=("cubic_solve", "topk_compress"), label="EF21"):
-    """Run one spec on the card through the user's entry points; check one
-    launch a round of each of ``kernels`` and none of the others; return
-    the kernels' launch counts of that run."""
+          kernels=("cubic_solve", "topk_compress"), label="EF21", dim=300,
+          bits=lambda k: (UPLINK_BITS, DOWNLINK_BITS)):
+    """Run one spec on the card through the user's entry points; check the
+    ledger's integers of every round (``bits(k)`` gives a round's uplink and
+    downlink bits at the uplink's k of that round), a decreasing loss, and
+    one launch a round of each of ``kernels`` and none of the others; return
+    the kernels' launch counts of that run and its history."""
     import torch
 
     from repro_torch.api import ExperimentSpec
@@ -357,24 +517,27 @@ def drive(spec_kw: dict, rounds: int, *, sparse: bool,
     wall = time.perf_counter() - t0
     launches = dict(LAUNCHES)
     check(exp.algo._use_sparse_center is sparse, "sparse center choice")
-    check(w.shape == (300,) and bool(torch.isfinite(w).all()),
+    check(w.shape == (dim,) and bool(torch.isfinite(w).all()),
           "finite iterate of the expected shape")
     loss = hist["loss"]
     check(len(loss) == rounds and all(map(math.isfinite, loss)), loss)
     check(all(b < a for a, b in zip(loss, loss[1:])), loss)
+    expected = [bits(k) for k in hist["k_trajectory"]]
     per_round = [b - a for a, b in
                  zip([0] + hist["bits_cumulative"], hist["bits_cumulative"])]
-    check(per_round == [UPLINK_BITS + DOWNLINK_BITS] * rounds, per_round)
-    check(hist["uplink_bits"] == UPLINK_BITS * rounds, hist["uplink_bits"])
-    check(hist["downlink_bits"] == DOWNLINK_BITS * rounds,
+    check(per_round == [up + down for up, down in expected], per_round)
+    check(hist["uplink_bits"] == sum(up for up, _ in expected),
+          hist["uplink_bits"])
+    check(hist["downlink_bits"] == sum(down for _, down in expected),
           hist["downlink_bits"])
     check(launches == {name: rounds if name in kernels else 0
                         for name in launches}, launches)
-    log(f"{label} w8a run ({spec_kw['aggregator']}, {spec_kw['attack']}): "
-        f"{rounds} rounds in {wall:.3f} s, loss {loss}, uplink "
+    log(f"{label} run ({spec_kw['problem']}, {spec_kw['compressor']}, "
+        f"{spec_kw['aggregator']}, {spec_kw['attack']}): {rounds} rounds in "
+        f"{wall:.3f} s, loss {loss}, k {hist['k_trajectory']}, uplink "
         f"{hist['uplink_bits']} bits, downlink {hist['downlink_bits']} bits, "
         f"launches {launches}")
-    return launches
+    return launches, hist
 
 
 def check_small_against_cpu():
@@ -402,11 +565,49 @@ def check_small_against_cpu():
             f"{hc['loss']}")
 
 
-def round_breakdown(spec_kw: dict = W8A, phases: bool = True) -> None:
-    """Profile one w8a round (``step``) of ``spec_kw`` on the card: the
+def check_small_large_d_against_cpu():
+    """:data:`SMALL_LARGE_D` (d = 4352: the sharded top-k and the gridded
+    center) on the card and on the CPU over the same data, 2 rounds: equal
+    ledger integers, equal keep masks each round, loss within rtol 1e-5."""
+    import numpy as np
+    import torch
+
+    from repro_torch import interop
+    from repro_torch.api import ExperimentSpec
+
+    spec = ExperimentSpec(**SMALL_LARGE_D)
+    cpu = spec.build(device="cpu")
+    card = spec.build(problem=interop.problem_from_reference(
+        cpu.problem, device="cuda"))
+    wg, hg = card.run(2)
+    wc, hc = cpu.run(2)
+    np.testing.assert_allclose(hg["loss"], hc["loss"], rtol=1e-5)
+    for key in ("uplink_bits", "downlink_bits", "bits_cumulative"):
+        check(hg[key] == hc[key], ("d = 4352", key))
+
+    def keeps(exp):
+        algo, p = exp.algo, exp.problem
+        check(algo._use_sparse_center, "d = 4352 sparse center")
+        w, v, st = p.w0, torch.zeros_like(p.w0), algo.init_comm_state()
+        out = []
+        for _ in range(2):
+            w, v, st, info = algo.step(w, p.X_workers, p.y_workers, None, v,
+                                       st)
+            out.append(info["keep"].cpu())
+        return out
+
+    for kg, kc in zip(keeps(card), keeps(cpu)):
+        check(torch.equal(kg, kc), ("d = 4352 keep masks", kg, kc))
+    log(f"small spec at d = 4352 (sharded top-k, gridded center): card and "
+        f"CPU agree, loss {hg['loss']} vs {hc['loss']}, equal keep masks")
+
+
+def round_breakdown(spec_kw: dict = W8A, phases: bool = True,
+                    label: str = "w8a") -> None:
+    """Profile one round (``step``) of ``spec_kw`` on the card: the
     host-clock time, the device's busy time and share, the kernels by
-    device time and the center's kernels among them; then, with
-    ``phases``, time the round's phases alone, with the peak memory of
+    device time and the wire's and the center's kernels among them; then,
+    with ``phases``, time the round's phases alone, with the peak memory of
     each."""
     import torch
     from torch.func import grad
@@ -432,12 +633,15 @@ def round_breakdown(spec_kw: dict = W8A, phases: bool = True) -> None:
                   reverse=True)
     busy_ms = sum(r[0] for r in rows)
     top = "; ".join(f"{name} x{n}: {ms:.4f} ms" for ms, n, name in rows[:8])
+    ours = ("krum_scores", "sort_workers", "sparse_agg", "topk_compress",
+            "hist_kernel", "select_kernel", "count_kernel", "pack_kernel")
     center = "; ".join(f"{name} x{n}: {ms:.4f} ms" for ms, n, name in rows
-                       if "krum_scores" in name or "sort_workers" in name)
-    log(f"one w8a round ({spec_kw['aggregator']}, {spec_kw['attack']}; step, "
-        f"profiled): {wall_ms:.3f} ms on the host clock, device busy "
-        f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f} %); center kernels:"
-        f" {center or 'none'}; top kernels: {top}")
+                       if any(k in name for k in ours))
+    log(f"one {label} round ({spec_kw['compressor']}, "
+        f"{spec_kw['aggregator']}, {spec_kw['attack']}; step, profiled): "
+        f"{wall_ms:.3f} ms on the host clock, device busy {busy_ms:.3f} ms "
+        f"({100 * busy_ms / wall_ms:.1f} %); wire and center kernels: "
+        f"{center or 'none'}; top kernels: {top}")
     if not phases:
         return
 
@@ -447,7 +651,7 @@ def round_breakdown(spec_kw: dict = W8A, phases: bool = True) -> None:
     H = algo._worker_hessians(w, X, y)
     phases = {
         "worker grads (vmap grad)": lambda: algo._worker_grads(w, X, y),
-        "worker Hessians (vmap hessian)":
+        "worker Hessians (closed form, bmm)":
             lambda: algo._worker_hessians(w, X, y),
         "cubic solve (kernel)": lambda: solve_cubic_gd(
             g, H, M=cfg.M, gamma=cfg.gamma, tol=cfg.solver_tol,
@@ -468,7 +672,7 @@ def round_breakdown(spec_kw: dict = W8A, phases: bool = True) -> None:
         ms = (time.perf_counter() - t0) * 1e3 / 3
         peak = (torch.cuda.max_memory_allocated() - base) / 2**20
         parts.append(f"{name}: {ms:.3f} ms, peak +{peak:.0f} MiB")
-    log("w8a round phases (host clock, synchronised, mean of 3): "
+    log(f"{label} round phases (host clock, synchronised, mean of 3): "
         + "; ".join(parts))
 
 
@@ -609,6 +813,77 @@ def time_kernels(inp: dict, launches: dict) -> list:
     ]
 
 
+def time_gisette_kernels(inp: dict, launches: dict) -> list:
+    """The records of the sharded top-k and the gridded center at drive A's
+    shapes: the (20, 5000) updates at k = 500, and their (20, 500)
+    payloads summed with the norm_trim keep as weights."""
+    import torch
+
+    from repro_torch.kernels import (
+        aggregate_sparse_gridded,
+        aggregate_sparse_plain,
+        topk_compress_plain,
+        topk_compress_sharded,
+    )
+
+    s, k, vals, idx, keep = (inp[n] for n in ("s", "k", "vals", "idx",
+                                                "keep"))
+    m, d = s.shape
+    passes = ("hist_kernel", "select_kernel", "count_kernel", "pack_kernel",
+              "Memset")
+    topk_ms = cuda_ms(lambda: topk_compress_sharded(s, k), reps=200)
+    topk_plain_ms = cuda_ms(lambda: topk_compress_plain(s, k), reps=50)
+    topk_lib_ms = cuda_ms(lambda: torch.topk(s.abs(), k, dim=1), reps=200)
+    topk_dev = device_ms_by_name(lambda: topk_compress_sharded(s, k), 200,
+                                 passes)
+    # x read once and the payload written once; per coordinate three
+    # histogram updates and the sure/tie compares
+    topk_bound, topk_by = bound_ms(4 * m * d + 8 * m * k, 5 * m * d)
+    agg_ms = cuda_ms(lambda: aggregate_sparse_gridded(vals, idx, d, keep),
+                     reps=200)
+    agg_plain_ms = cuda_ms(lambda: aggregate_sparse_plain(vals, idx, d, keep),
+                           reps=50)
+    lib_idx = idx.reshape(-1).long()
+    lib_vals = (vals * keep[:, None]).reshape(-1)
+    agg_lib_ms = cuda_ms(lambda: torch.zeros(d, device=s.device).index_add_(
+        0, lib_idx, lib_vals), reps=200)
+    agg_dev = device_ms_by_name(
+        lambda: aggregate_sparse_gridded(vals, idx, d, keep), 200,
+        ("sparse_agg_kernel",))
+    # the payloads and weights read once, the aggregate written once; a
+    # multiply and an add per payload entry
+    agg_bound, agg_by = bound_ms(8 * m * k + 4 * m + 4 * d, 2 * m * k)
+    log(f"topk_compress_sharded at ({m}, {d}), k = {k}: {topk_ms:.4f} ms a "
+        f"call, device by pass {topk_dev}, plain {topk_plain_ms:.4f} ms, "
+        f"torch.topk {topk_lib_ms:.4f} ms, bound {topk_bound:.7f} ms; "
+        f"aggregate_sparse_gridded of ({m}, {k}) over d = {d}: {agg_ms:.4f} "
+        f"ms a call, device {agg_dev}, plain {agg_plain_ms:.4f} ms, "
+        f"index_add_ {agg_lib_ms:.4f} ms, bound {agg_bound:.7f} ms")
+    return [
+        {"name": "topk_sharded", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/topk_sharded.cu",
+         "replaces": "src/repro/kernels/topk_compress.py:299",
+         "replaces_passes": ["src/repro/kernels/topk_compress.py:299",
+                             "src/repro/kernels/topk_compress.py:331"],
+         "launches": launches["topk_sharded"],
+         "max_abs_err": inp["topk_err"], "ms": topk_ms,
+         "plain_ms": topk_plain_ms, "bound_ms": topk_bound,
+         "bound_by": topk_by, "library_ms": topk_lib_ms,
+         "device_ms": sum(v for key, v in topk_dev.items()
+                          if key in passes[:4] and v is not None),
+         "device_ms_by_pass": topk_dev, "shape": [m, d], "k": k},
+        {"name": "sparse_agg", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/sparse_agg.cu",
+         "replaces": "src/repro/kernels/robust_agg.py:245",
+         "launches": launches["sparse_agg"],
+         "max_abs_err": inp["agg_err"], "ms": agg_ms,
+         "plain_ms": agg_plain_ms, "bound_ms": agg_bound,
+         "bound_by": agg_by, "library_ms": agg_lib_ms,
+         "device_ms": agg_dev["sparse_agg_kernel"],
+         "device_ms_call": agg_dev["all"], "shape": [m, k], "d": d},
+    ]
+
+
 def main() -> int:
     import torch
 
@@ -620,7 +895,7 @@ def main() -> int:
     from repro_torch.api import ExperimentSpec
     from repro_torch.kernels import build_all
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     libs = build_all()
     log(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
     card = card_line()
@@ -638,33 +913,53 @@ def main() -> int:
     inputs["center"] = center_stack(inputs)
     inputs.update(check_agg_kernels(inputs["center"]))
 
-    launches = drive(W8A, 5, sparse=False)
-    sparse_launches = drive(W8A_SPARSE, 3, sparse=True,
-                            label="sparse-center")
+    launches, _ = drive(W8A, 5, sparse=False)
+    sparse_launches, _ = drive(W8A_SPARSE, 3, sparse=True,
+                               label="sparse-center")
     rule_launches = {}
     for rule, kernel in W8A_RULES.items():
-        rule_launches[rule] = drive(
+        rule_launches[rule], _ = drive(
             dict(W8A, attack="gaussian", aggregator=rule), 3, sparse=False,
             kernels=("cubic_solve", "topk_compress", kernel),
             label=rule.partition(":")[0])
+
+    # gisette's width: the sharded top-k and the gridded center
+    ginp = check_gisette_kernels()
+    check((gisette_uplink_bits(500), GISETTE_DOWNLINK_BITS)
+          == (450000, 160000), "gisette ledger rule")
+    a_launches, _ = drive(
+        DRIVE_A, 3, sparse=True, dim=GISETTE_D, label="gisette sparse-center",
+        kernels=("cubic_solve", "topk_sharded", "sparse_agg"),
+        bits=lambda k: (gisette_uplink_bits(500), GISETTE_DOWNLINK_BITS))
+    b_launches, b_hist = drive(
+        DRIVE_B, 4, sparse=False, dim=GISETTE_D, label="gisette adaptive-k",
+        kernels=("cubic_solve", "topk_sharded"),
+        bits=lambda k: (gisette_uplink_bits(k), GISETTE_DOWNLINK_BITS))
+    check(len(set(b_hist["k_trajectory"])) > 1,
+          ("adaptive k must move", b_hist["k_trajectory"]))
     check_small_against_cpu()
+    check_small_large_d_against_cpu()
 
     # each kernel's launches in the first run that drives it
-    first = dict(launches)
-    for runs in rule_launches.values():
-        for name, n in runs.items():
-            first[name] = first[name] or n
+    runs = {"ef21_norm_trim_5_rounds": launches,
+            "sparse_center_3_rounds": sparse_launches,
+            **{f"{rule}_3_rounds": n for rule, n in rule_launches.items()},
+            "gisette_sparse_center_3_rounds": a_launches,
+            "gisette_adaptive_k_4_rounds": b_launches}
+    first = {name: next((n[name] for n in runs.values() if n[name]), 0)
+             for name in launches}
     kernels = time_kernels(inputs, first)
+    kernels[0]["at_gisette"] = ginp["cubic"]
+    kernels += time_gisette_kernels(ginp, first)
+    round_breakdown(DRIVE_A, label="gisette (d = 5000) sparse-center")
     round_breakdown()
     for rule in W8A_RULES:
         round_breakdown(dict(W8A, attack="gaussian", aggregator=rule),
                         phases=False)
     for rec in kernels:
-        rec["launches_by_run"] = {
-            "ef21_norm_trim_5_rounds": launches[rec["name"]],
-            "sparse_center_3_rounds": sparse_launches[rec["name"]],
-            **{f"{rule}_3_rounds": runs[rec["name"]]
-               for rule, runs in rule_launches.items()}}
+        rec["launches_by_run"] = {run: n[rec["name"]]
+                                  for run, n in runs.items()}
+    log(f"finished in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

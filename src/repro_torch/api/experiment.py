@@ -23,7 +23,6 @@ import torch
 
 from .._device import resolve_device
 from ..compression.registry import make_compressor
-from ..kernels import SINGLE_TILE_MAX_D
 from .aggregators import make_aggregator
 from .attacks import make_attack, to_attack_config
 from .errors import SpecError, not_ported
@@ -197,11 +196,6 @@ class ExperimentSpec:
                 make_compressor(spec, dim)
             except ValueError as e:
                 raise SpecError(f"{field}={spec!r}: {e}") from None
-            if (spec.partition(":")[0] == "topk_kernel"
-                    and dim > SINGLE_TILE_MAX_D):
-                raise not_ported(
-                    f"{field}={spec!r} at d={dim} > {SINGLE_TILE_MAX_D} (the "
-                    f"sharded top-k kernel)", "Queue 2 item 4")
 
         ef = self.resolved_error_feedback()
         if ef not in ("none", "ef", "ef21"):
@@ -261,7 +255,8 @@ class Experiment:
     """A built, ready-to-run experiment.
 
     ``run(n_steps, grad_tol=...)`` returns ``(iterate, history)``; the
-    history carries ``loss`` plus the exact-int wire-ledger totals.
+    history carries ``loss``, the adaptive uplink's ``k_trajectory`` and
+    the exact-int wire-ledger totals.
     ``.problem`` holds the data and ``.algo`` the
     :class:`~repro_torch.core.DistributedCubicNewton`.
     """

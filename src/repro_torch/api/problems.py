@@ -55,6 +55,43 @@ def robust_regression_loss(w, X, y):
     return torch.mean(torch.log(r * r / 2.0 + 1.0))
 
 
+# ------------------------------------------------- closed-form Hessians
+# Both catalog losses are GLMs, f(w) = mean_j φ(x_jᵀw) (+ a ridge term), so
+# each worker's Hessian is Xᵀ·diag(φ''(z))·X / n: one batched product over
+# the m workers, with no (m, d, n, d) intermediate of vmap(hessian(...)).
+
+
+def _glm_hessians(X, curvature):
+    """Xᵀ·diag(curvature)·X / n for X (m, n, d) and curvature (m, n); the
+    division is in place, so the (m, d, d) result is the only large
+    allocation."""
+    H = torch.bmm(X.transpose(1, 2) * curvature[:, None, :], X)
+    return H.div_(X.shape[1])
+
+
+def logistic_hessians(X, y, w):
+    """Per-worker Hessians of :func:`logistic_loss` (Eq. 8) at w (d,), for
+    X (m, n, d), y (m, n): Xᵀ·diag(σ(z)σ(−z))·X/n + I/n with z = Xw.  The
+    labels drop out (ỹ² = 1); the ridge term 0.5/n·‖w‖² gives the I/n."""
+    z = X @ w
+    H = _glm_hessians(X, torch.sigmoid(z) * torch.sigmoid(-z))
+    H.diagonal(dim1=1, dim2=2).add_(1.0 / X.shape[1])
+    return H
+
+
+def robust_regression_hessians(X, y, w):
+    """Per-worker Hessians of :func:`robust_regression_loss` (Eq. 9) at w
+    (d,), for X (m, n, d), y (m, n): Xᵀ·diag((1 − r²/2)/(1 + r²/2)²)·X/n
+    with r = y − Xw."""
+    a = 0.5 * (y - X @ w) ** 2
+    return _glm_hessians(X, (1.0 - a) / (1.0 + a) ** 2)
+
+
+#: closed-form batched Hessians of the catalog losses, keyed by the loss
+HESSIANS = {logistic_loss: logistic_hessians,
+            robust_regression_loss: robust_regression_hessians}
+
+
 def accuracy(w, X, y):
     return float(((X @ w > 0) == (y > 0.5)).to(torch.float32).mean())
 

@@ -12,9 +12,11 @@ A :class:`VectorChannel` owns, in one place:
 * **Byzantine-injection hook** — update-level attacks corrupt the
   *reconstructed* payloads (compression grants Byzantine senders no
   protection);
-* **exact wire accounting** — ``bits_per_round`` is a static Python int
-  for a :class:`repro_torch.comm.WireLedger`, computed from the PAYLOAD,
-  so ``topk_kernel`` and ``topk`` account identically.
+* **exact wire accounting** — ``bits_per_round`` is a Python int for a
+  :class:`repro_torch.comm.WireLedger`, computed from the PAYLOAD, so
+  ``topk_kernel`` and ``topk`` account identically.  An adaptive
+  compressor moves its k between rounds: ``transmit``/``transmit_sparse``
+  send payloads of the live k, and ``bits_per_round`` bills it.
 
 Senders hold flat ``(d,)`` vectors stacked ``(n_senders, d)`` (or ``(d,)``
 when ``n_senders == 1``); every sender row is compressed in one call.  The
@@ -163,8 +165,9 @@ class VectorChannel:
 
     # -- accounting -----------------------------------------------------
     def bits_per_round(self) -> int:
-        """Exact bits one round costs on this channel (static Python int):
-        m payloads uplink, ONE broadcast payload downlink."""
+        """Exact bits one round costs on this channel (a Python int, at the
+        compressor's live k): m payloads uplink, ONE broadcast payload
+        downlink."""
         payload = (self.compressor.wire_bits(self.d)
                    if self.compressor is not None
                    else self.value_bits * self.d)

@@ -4,9 +4,11 @@ port of the reference's ``core/newton.py`` (the paper-faithful runtime).
 m workers are simulated in one process on one device, their data stacked
 on a leading worker axis.  Each round:
 
-1. every worker forms its local gradient and explicit Hessian
-   (``torch.func.grad``/``hessian``, batched over the worker axis with
-   ``vmap``);
+1. every worker forms its local gradient (``torch.func.grad`` batched
+   over the worker axis with ``vmap``) and its explicit Hessian: for the
+   catalog's two losses the closed GLM form, one batched product
+   (:data:`repro_torch.api.problems.HESSIANS`); for any other loss
+   ``vmap(hessian(loss_fn))``;
 2. every worker solves the cubic sub-problem with Algorithm 2
    (:func:`repro_torch.core.cubic.solve_cubic_gd`, one kernel launch for
    all workers on the card);
@@ -17,8 +19,13 @@ on a leading worker axis.  Each round:
    — on the sparse center straight from the top-k payloads;
 5. the center broadcasts the step through the downlink channel.
 
-Left for later slices (ROADMAP.md Queue 1b): telemetry round records
-(item B4) and the adaptive-k schedule (item B3).
+Between rounds, :meth:`DistributedCubicNewton.run` feeds every adaptive
+compressor (:class:`repro_torch.compression.AdaptiveTopK`) the pooled
+gradient norm and the uplink's measured δ̂; a k move changes the payload
+width of the next round, and the ledger bills each round at its own k.
+
+Left for a later slice (ROADMAP.md Queue 1b): telemetry round records
+(item B4).
 """
 from __future__ import annotations
 
@@ -30,6 +37,7 @@ from torch.func import grad, hessian, vmap
 
 from .._device import resolve_device
 from ..comm import VectorChannel, WireLedger
+from ..compression import AdaptiveTopK
 from .cubic import solve_cubic_gd
 
 
@@ -95,6 +103,7 @@ class DistributedCubicNewton:
         # the api import is lazy to keep the package import graph acyclic
         from ..api.aggregators import default_aggregator_spec, make_aggregator
         from ..api.attacks import resolve_attack
+        from ..api.problems import HESSIANS
 
         self.device = resolve_device(device)
         self.loss_fn = loss_fn
@@ -107,7 +116,12 @@ class DistributedCubicNewton:
         )
         self._attack_rule = resolve_attack(attack)
         self._worker_grads = vmap(grad(loss_fn), in_dims=(None, 0, 0))
-        self._worker_hessians = vmap(hessian(loss_fn), in_dims=(None, 0, 0))
+        closed_form = HESSIANS.get(loss_fn)
+        if closed_form is not None:
+            self._worker_hessians = lambda w, X, y: closed_form(X, y, w)
+        else:
+            self._worker_hessians = vmap(hessian(loss_fn),
+                                         in_dims=(None, 0, 0))
         self.rounds_per_step = 2 if config.exact_gradient else 1
         self.ledger = WireLedger()
         self._dims: Optional[tuple] = None
@@ -150,6 +164,14 @@ class DistributedCubicNewton:
         self._use_sparse_center = (can_sparse if cfg.sparse_center is None
                                    else bool(cfg.sparse_center))
         self._dims = (d, m)
+
+    @property
+    def channels(self) -> dict:
+        """The live channels (built at the first step), keyed by segment."""
+        chans = {"uplink": self.uplink, "downlink": self.downlink}
+        if self.grad_uplink is not None:
+            chans["grad"] = self.grad_uplink
+        return chans
 
     def init_comm_state(self):
         """Fresh channel state (per-worker EF memories) on the device."""
@@ -259,12 +281,34 @@ class DistributedCubicNewton:
     def center_bytes_per_round(self) -> int:
         """Bytes the center's aggregation path touches per round: the m
         (value, index) payloads plus the aggregate on the sparse center —
-        O(m·k + d) — else m reconstructed f32 vectors plus the aggregate."""
+        O(m·k + d), at the live k of an adaptive uplink — else m
+        reconstructed f32 vectors plus the aggregate."""
         m, d = self.uplink.n_senders, self.uplink.d
         if self._use_sparse_center:
             k = min(self.uplink.compressor.k, d)
             return m * k * 8 + 4 * d
         return m * d * 4 + 4 * d
+
+    def _maybe_adapt(self, grad_norm: float,
+                     measured_delta: Optional[float] = None) -> bool:
+        """Feed adaptive compressors the host-side signals: the gradient
+        norm, and on the uplink its measured per-round δ̂.  Returns whether
+        any k changed; the next round's payloads take the new width."""
+        changed = False
+        for name, ch in self.channels.items():
+            comp = ch.compressor
+            if isinstance(comp, AdaptiveTopK):
+                changed |= comp.schedule_update(
+                    grad_norm=grad_norm,
+                    measured_delta=(measured_delta
+                                    if name == "uplink" else None),
+                )
+        return changed
+
+    def _uplink_k(self) -> Optional[int]:
+        """The uplink's live adaptive k (None on non-adaptive wires)."""
+        comp = self.uplink.compressor if self.uplink is not None else None
+        return comp.k if isinstance(comp, AdaptiveTopK) else None
 
     def run(
         self,
@@ -280,7 +324,8 @@ class DistributedCubicNewton:
         """Run Algorithm 1 for ``n_steps`` (or until ‖∇f‖ ≤ grad_tol on the
         pooled data).  Returns ``(w, history)`` with the reference's
         history keys: per-round ``loss``, ``grad_norm``, ``eval``,
-        ``bits_cumulative``, ``uplink_delta`` and ``k_trajectory``, the
+        ``bits_cumulative``, ``uplink_delta`` and ``k_trajectory`` (the
+        uplink's k in each round; None entries on a non-adaptive wire), the
         ``saddle_escape_step`` and ``truncated`` flags (no deadline is
         ported yet, so ``truncated`` stays False), and the exact ledger
         totals."""
@@ -301,24 +346,30 @@ class DistributedCubicNewton:
         v = torch.zeros_like(w0)
         state = self.init_comm_state()
         for t in range(n_steps):
+            k_live = self._uplink_k()      # the k this round transmits at
             w, v, state, info = self.step(w, X, y, generator, v, state)
+            # re-read every round: adaptive compressors move k between rounds
             bps = self.bits_per_step()
             ledger.record(uplink=bps["uplink"], downlink=bps["downlink"],
                           rounds=self.rounds_per_step)
             hist["bits_cumulative"].append(ledger.total_bits)
-            hist["uplink_delta"].append(float(info["uplink_delta"]))
-            hist["k_trajectory"].append(None)  # no adaptive wires yet
+            delta_hat = float(info["uplink_delta"])
+            hist["uplink_delta"].append(delta_hat)
+            hist["k_trajectory"].append(k_live)
             gn = float(torch.linalg.vector_norm(gradf(w, Xf, yf)))
             loss = float(self.loss_fn(w, Xf, yf))
             hist["loss"].append(loss)
             hist["grad_norm"].append(gn)
             if eval_fn is not None:
                 hist["eval"].append(float(eval_fn(w)))
+            hit_tol = grad_tol is not None and gn <= grad_tol
+            if not hit_tol:
+                self._maybe_adapt(gn, measured_delta=delta_hat)
             if (saddle_value is not None
                     and hist["saddle_escape_step"] is None
                     and loss < saddle_value):
                 hist["saddle_escape_step"] = t
-            if grad_tol is not None and gn <= grad_tol:
+            if hit_tol:
                 break
         hist.update(ledger.snapshot())
         return w, hist

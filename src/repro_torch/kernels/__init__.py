@@ -3,14 +3,17 @@ version beside it in the same module:
 
 * :mod:`.cubic_step` -- the batched Algorithm-2 solve (``csrc/cubic_solve.cu``),
   replacing the reference's Pallas ``cubic_step``;
-* :mod:`.topk_compress` -- the batched top-|x| wire payload
-  (``csrc/topk_compress.cu``), replacing the reference's Pallas
-  ``topk_compress_tiled``;
+* :mod:`.topk_compress` -- the batched top-|x| wire payload: one CTA per
+  row up to d = 1408 (``csrc/topk_compress.cu``) and a grid of row × block
+  CTAs beyond (``csrc/topk_sharded.cu``), replacing the reference's Pallas
+  ``topk_compress_tiled`` and ``topk_compress_sharded``;
 * :mod:`.robust_agg` -- krum's scores (``csrc/krum_scores.cu``) and the
   per-coordinate worker sort behind the trimmed mean and the median
   (``csrc/sort_workers.cu``), replacing the reference's Pallas
-  ``krum_scores_fused`` and ``sort_workers_fused``; and the sparse center's
-  scatter branch (plain PyTorch, as in the reference).
+  ``krum_scores_fused`` and ``sort_workers_fused``; and the sparse center:
+  its scatter branch up to d = 4096 (plain PyTorch, as in the reference)
+  and the gridded kernel beyond (``csrc/sparse_agg.cu``), replacing the
+  reference's Pallas ``aggregate_sparse_gridded``.
 
 A wrapper launches its kernel on a CUDA tensor, or raises; it runs the plain
 version on a CPU tensor.  :data:`LAUNCHES` counts the kernel launches.
@@ -25,7 +28,10 @@ from .cubic_step import (
 )
 from .robust_agg import (
     SPARSE_SCATTER_MAX_D,
+    agg_kernel_plan,
     aggregate_sparse,
+    aggregate_sparse_gridded,
+    aggregate_sparse_plain,
     coordinate_median_fused,
     krum_scores,
     krum_scores_plain,
@@ -36,8 +42,10 @@ from .robust_agg import (
 )
 from .topk_compress import (
     SINGLE_TILE_MAX_D,
+    kernel_plan,
     topk_compress,
     topk_compress_plain,
+    topk_compress_sharded,
     topk_decompress,
 )
 
@@ -45,7 +53,10 @@ __all__ = [
     "LAUNCHES",
     "SINGLE_TILE_MAX_D",
     "SPARSE_SCATTER_MAX_D",
+    "agg_kernel_plan",
     "aggregate_sparse",
+    "aggregate_sparse_gridded",
+    "aggregate_sparse_plain",
     "build_all",
     "coordinate_median_fused",
     "cubic_solve",
@@ -53,6 +64,7 @@ __all__ = [
     "cubic_solve_plain",
     "cubic_step",
     "default_lr",
+    "kernel_plan",
     "krum_scores",
     "krum_scores_plain",
     "krum_select_fused",
@@ -61,6 +73,7 @@ __all__ = [
     "sort_workers_plain",
     "topk_compress",
     "topk_compress_plain",
+    "topk_compress_sharded",
     "topk_decompress",
     "trimmed_mean_fused",
 ]

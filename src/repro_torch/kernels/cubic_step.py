@@ -96,8 +96,15 @@ def cubic_solve(g, H, s0=None, lr=None, *, M=10.0, gamma=1.0, tol=1e-6,
 
 
 def default_lr(H, M, gamma):
-    """Algorithm 2's step per worker: ``1/(γ(‖H‖_F + Mγ) + 1e-8)``."""
-    fro = torch.linalg.matrix_norm(H, ord="fro")
+    """Algorithm 2's step per worker: ``1/(γ(‖H‖_F + Mγ) + 1e-8)``.
+
+    ‖H‖_F is the norm of the row norms: PyTorch's float32
+    ``matrix_norm(ord="fro")`` on the CPU sums all d² squares in one pass
+    and is off by 1e-3 (relative) at d = 4352, where the norm of row norms
+    agrees with float64 to 1e-7, as the reference's ``jnp.linalg.norm``
+    does."""
+    fro = torch.linalg.vector_norm(torch.linalg.vector_norm(H, dim=-1),
+                                   dim=-1)
     return 1.0 / (gamma * (fro + M * gamma) + 1e-8)
 
 

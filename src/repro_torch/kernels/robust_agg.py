@@ -1,12 +1,15 @@
 """The center's aggregation kernels.
 
-* Sparse-domain aggregation: Σᵢ wᵢ·scatter(valsᵢ, idxᵢ) over m top-k wire
-  payloads, never building an (m, d) array.  The reference
-  (``kernels/robust_agg.py::aggregate_sparse``) takes a plain ``jnp``
-  scatter-add up to :data:`SPARSE_SCATTER_MAX_D` and its gridded Pallas
-  segmented-merge kernel (``aggregate_sparse_gridded``) beyond.  The scatter
-  branch is ported here as ``index_add_``; the gridded kernel is not ported
-  yet, so above the bound this raises rather than quietly scattering.
+* Sparse-domain aggregation (:func:`aggregate_sparse`): Σᵢ wᵢ·scatter(valsᵢ,
+  idxᵢ) over m top-k wire payloads, never building an (m, d) array.  As the
+  reference (``kernels/robust_agg.py::aggregate_sparse``) does, it takes a
+  plain scatter-add (here ``index_add_``) up to
+  :data:`SPARSE_SCATTER_MAX_D` and the gridded kernel beyond
+  (:func:`agg_kernel_plan`): :func:`aggregate_sparse_gridded` on
+  ``csrc/sparse_agg.cu``, replacing the reference's Pallas
+  ``aggregate_sparse_gridded``, whose plain version
+  :func:`aggregate_sparse_plain` is the sequential contract of
+  ``kernels/ref.py::sparse_aggregate_ref``; both give its bits.
 * Krum scores (:func:`krum_scores`, ``csrc/krum_scores.cu``), replacing the
   reference's Pallas ``krum_scores_fused``: only the (m,) scores leave the
   kernel, and :func:`krum_select_fused` takes their argmin in PyTorch.
@@ -32,18 +35,97 @@ SPARSE_SCATTER_MAX_D = 4096
 _BIG = 1e30
 
 
-def aggregate_sparse(vals, idx, d: int, weights=None):
-    """values (m, k) f32 + indices (m, k) int32 (+ optional weights (m,))
-    → the (d,) f32 weighted sum of the scattered payloads."""
-    if d > SPARSE_SCATTER_MAX_D:
-        raise NotImplementedError(
-            f"sparse aggregation at d={d} > {SPARSE_SCATTER_MAX_D} runs the "
-            f"reference's gridded Pallas kernel (aggregate_sparse_gridded), "
-            f"which is not ported yet -- ROADMAP.md Queue 2 item 3"
-        )
+def agg_kernel_plan(m: int, d: int, *, k: int) -> str:
+    """Which path sums m payloads of width k into d coordinates:
+    ``"scatter"`` up to :data:`SPARSE_SCATTER_MAX_D`, ``"sparse_gridded"``
+    beyond (the reference's ``agg_kernel_plan`` boundary)."""
+    if m < 1 or k < 0 or d < 1:
+        raise ValueError(f"sparse aggregation needs m >= 1, k >= 0 and "
+                         f"d >= 1, got m={m}, k={k}, d={d}")
+    return "scatter" if d <= SPARSE_SCATTER_MAX_D else "sparse_gridded"
+
+
+def _weighted(vals, weights):
+    """The payload values with each worker's weight folded in (one f32
+    rounding per value), as the contract has it."""
     v = vals.to(torch.float32)
     if weights is not None:
         v = v * weights.to(torch.float32)[:, None]
+    return v
+
+
+def aggregate_sparse_plain(vals, idx, d: int, weights=None):
+    """Plain PyTorch version of the contract of ``sparse_aggregate_ref``: the
+    weighted payloads ravel into one stream, a stable sort by coordinate
+    keeps worker order and then row order among duplicates, and every
+    coordinate adds its entries to 0.0 in that order.  The j-th entries of
+    all coordinates are added in one pass, so each pass writes distinct
+    coordinates and the result is the same on any device."""
+    vs = _weighted(vals, weights).reshape(-1)
+    ix, order = torch.sort(idx.reshape(-1).long(), stable=True)
+    vs = vs[order]
+    rank = (torch.arange(ix.numel(), device=ix.device)
+            - torch.searchsorted(ix, ix, side="left"))
+    out = torch.zeros((d,), dtype=torch.float32, device=vals.device)
+    for j in range(int(rank.max()) + 1 if ix.numel() else 0):
+        sel = rank == j
+        c = ix[sel]
+        out[c] = out[c] + vs[sel]
+    return out
+
+
+def _check_payload(vals, idx, weights):
+    if vals.dtype != torch.float32 or idx.dtype != torch.int32:
+        raise TypeError(f"sparse aggregation takes float32 values and int32 "
+                        f"indices, got {vals.dtype} and {idx.dtype}")
+    if vals.dim() != 2 or idx.shape != vals.shape:
+        raise ValueError(f"sparse aggregation takes (m, k) values and "
+                         f"indices, got {tuple(vals.shape)} and "
+                         f"{tuple(idx.shape)}")
+    if weights is not None and tuple(weights.shape) != (vals.shape[0],):
+        raise ValueError(f"sparse aggregation takes (m,) weights, got "
+                         f"{tuple(weights.shape)}")
+    for t in (idx, weights):
+        if t is not None and t.device != vals.device:
+            raise ValueError(f"sparse aggregation: payloads on "
+                             f"{vals.device}, another input on {t.device}")
+    if vals.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"sparse aggregation runs on cuda or cpu, got "
+                         f"{vals.device}")
+
+
+def aggregate_sparse_gridded(vals, idx, d: int, weights=None):
+    """values (m, k) f32 + indices (m, k) int32 (+ optional weights (m,))
+    → the (d,) f32 weighted sum, bit for bit the contract's: on a CUDA
+    tensor the kernel ``csrc/sparse_agg.cu`` (any d), after a stable sort of
+    each row by index; on a CPU tensor :func:`aggregate_sparse_plain`.
+    Indices must lie in [0, d): the kernel sums no entry outside it (the
+    plain version raises on one)."""
+    _check_payload(vals, idx, weights)
+    if vals.device.type == "cpu":
+        return aggregate_sparse_plain(vals, idx, d, weights)
+    m, k = vals.shape
+    sidx, perm = torch.sort(idx, dim=1, stable=True)
+    svals = torch.gather(vals, 1, perm)
+    w = None if weights is None else weights.to(torch.float32).contiguous()
+    out = torch.empty((d,), dtype=torch.float32, device=vals.device)
+    with torch.cuda.device(vals.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _build.launch("sparse_agg", svals.data_ptr(), sidx.data_ptr(),
+                      None if w is None else w.data_ptr(), out.data_ptr(),
+                      m, k, d, stream)
+    return out
+
+
+def aggregate_sparse(vals, idx, d: int, weights=None):
+    """values (m, k) f32 + indices (m, k) int32 (+ optional weights (m,))
+    → the (d,) f32 weighted sum of the scattered payloads, by the path
+    :func:`agg_kernel_plan` picks: ``index_add_`` up to
+    :data:`SPARSE_SCATTER_MAX_D`, :func:`aggregate_sparse_gridded` beyond."""
+    m, k = vals.shape
+    if agg_kernel_plan(m, d, k=k) == "sparse_gridded":
+        return aggregate_sparse_gridded(vals, idx, d, weights)
+    v = _weighted(vals, weights)
     out = torch.zeros((d,), dtype=torch.float32, device=vals.device)
     return out.index_add_(0, idx.reshape(-1).long(), v.reshape(-1))
 

@@ -75,9 +75,14 @@ def test_aggregate_sparse_matches_reference_oracle_and_raises_above_bound():
     out = aggregate_sparse(torch.from_numpy(vals), torch.from_numpy(idx), d,
                            weights=torch.from_numpy(np.round(w)))
     np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
-    with pytest.raises(NotImplementedError, match="Queue 2 item 3"):
-        aggregate_sparse(torch.zeros(2, 3), torch.zeros(2, 3, dtype=torch.int32),
-                         SPARSE_SCATTER_MAX_D + 1)
+    # above the bound the gridded path (it raised before that path was
+    # ported) gives the oracle's bits too
+    d = SPARSE_SCATTER_MAX_D + 1
+    idx = rng.integers(0, d, (m, k)).astype(np.int32)
+    ref = sparse_aggregate_ref(vals, idx, d, weights=np.round(w))
+    out = aggregate_sparse(torch.from_numpy(vals), torch.from_numpy(idx), d,
+                           weights=torch.from_numpy(np.round(w)))
+    np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
 
 
 def test_registry_grammar_and_later_slices():

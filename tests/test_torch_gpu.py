@@ -11,6 +11,8 @@ import torch
 
 from repro_torch.kernels import (
     LAUNCHES,
+    aggregate_sparse_gridded,
+    aggregate_sparse_plain,
     cubic_solve,
     cubic_solve_plain,
     krum_scores,
@@ -19,6 +21,7 @@ from repro_torch.kernels import (
     sort_workers_plain,
     topk_compress,
     topk_compress_plain,
+    topk_compress_sharded,
 )
 
 pytestmark = pytest.mark.gpu
@@ -95,3 +98,47 @@ def test_krum_kernel_matches_plain(cuda, m, d):
     assert torch.equal(krum_scores(ints, m // 5),
                        krum_scores_plain(ints, m // 5))
     assert LAUNCHES["krum_scores"] == before + 2
+
+
+@pytest.mark.parametrize("m,d,k", [(20, 1409, 140), (20, 5000, 500),
+                                   (20, 5000, 4999), (2, 65536, 6553),
+                                   (3, 65537, 1)])
+def test_topk_sharded_kernel_equals_plain(cuda, m, d, k):
+    """Bit for bit (values and indices) on normal rows, rows rounded to
+    halves (many ties, ±0 among them) and zeros."""
+    gen = torch.Generator(device=cuda).manual_seed(d + k)
+    before = LAUNCHES["topk_sharded"]
+    normal = torch.randn(m, d, generator=gen, device=cuda)
+    for x in (normal, torch.round(normal * 2) / 2,
+              torch.zeros(m, d, device=cuda)):
+        v, i = topk_compress_sharded(x, k)
+        pv, pi = topk_compress_plain(x, k)
+        assert torch.equal(i, pi)
+        assert torch.equal(v.view(torch.int32), pv.view(torch.int32))
+    assert LAUNCHES["topk_sharded"] == before + 3
+    if d > 1408:          # the dispatcher takes the sharded launch
+        topk_compress(normal, k)
+        assert LAUNCHES["topk_sharded"] == before + 4
+
+
+@pytest.mark.parametrize("m,k,d,dup", [(20, 500, 5000, False),
+                                       (8, 64, 8192, True),
+                                       (3, 16, 65537, False)])
+def test_sparse_agg_kernel_equals_plain(cuda, m, k, d, dup):
+    """Bit for bit, without weights, with 0/1 weights and with fractional
+    ones; duplicate indices within rows and unsorted rows included."""
+    gen = torch.Generator(device=cuda).manual_seed(m * k + d)
+    vals = torch.randn(m, k, generator=gen, device=cuda)
+    if dup:
+        idx = torch.randint(0, 50, (m, k), generator=gen, device=cuda)
+    else:
+        idx = torch.argsort(torch.rand(m, d, generator=gen, device=cuda),
+                            dim=1)[:, :k]
+    idx = idx.to(torch.int32)
+    before = LAUNCHES["sparse_agg"]
+    for w in (None, (torch.rand(m, generator=gen, device=cuda) < 0.5).float(),
+              2 * torch.rand(m, generator=gen, device=cuda)):
+        out = aggregate_sparse_gridded(vals, idx, d, w)
+        want = aggregate_sparse_plain(vals, idx, d, w)
+        assert torch.equal(out.view(torch.int32), want.view(torch.int32))
+    assert LAUNCHES["sparse_agg"] == before + 3

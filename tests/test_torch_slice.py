@@ -110,12 +110,29 @@ def test_spec_round_trips_and_validates():
 @pytest.mark.parametrize("override", [
     {"runtime": "async"}, {"runtime": "mesh"},
     {"solver": "byzantine_pgd"}, {"compressor": "randk:0.1"},
-    {"compressor": "signnorm"}, {"compressor": "adaptive_topk:0.05:0.5"},
+    {"compressor": "signnorm"}, {"compressor": "int8"},
     {"problem": "matrix-factor:10:2", "m_workers": 4},
-    {"problem": "synthetic-logistic:8000:2000", "m_workers": 4},
+    {"compressor": "randk:32"},
 ])
 def test_specs_outside_the_slice_name_their_roadmap_item(override):
     spec = ExperimentSpec(problem="a9a-logistic", m_workers=20,
                           compressor="topk_kernel:0.1").replace(**override)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         spec.validate()
+
+
+@pytest.mark.parametrize("override", [
+    {"compressor": "adaptive_topk:0.05:0.5"},
+    {"problem": "synthetic-logistic:8000:2000", "m_workers": 4},
+])
+def test_specs_this_slice_ports_validate_and_build(override):
+    """Adaptive top-k and the top-k kernel past d = 1408 raised in the
+    earlier slices; both now validate and build."""
+    spec = ExperimentSpec(problem="a9a-logistic", m_workers=20,
+                          compressor="topk_kernel:0.1").replace(**override)
+    exp = spec.validate().build(device="cpu")
+    exp.algo._ensure_channels(exp.problem.dim, exp.problem.m_workers)
+    comp = exp.algo.uplink.compressor
+    assert comp.use_kernel is (spec.compressor == "topk_kernel:0.1")
+    assert comp.k == max(1, round(
+        (0.05 if "adaptive" in spec.compressor else 0.1) * exp.problem.dim))

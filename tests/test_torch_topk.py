@@ -90,9 +90,12 @@ def test_cpu_tensor_takes_the_plain_version_without_a_launch():
 
 
 def test_topk_dispatcher_raises_past_the_single_tile_bound():
-    x = torch.zeros(SINGLE_TILE_MAX_D + 1)
-    with pytest.raises(NotImplementedError, match="Queue 2 item 4"):
-        topk_compress(x, 10)
+    """Past the bound the dispatcher takes the sharded path (it raised
+    before that path was ported); on the CPU that is the plain version."""
+    x = torch.from_numpy(_vector("duplicates", SINGLE_TILE_MAX_D + 1, 0))
+    out = topk_compress(x, 10)
+    assert all(torch.equal(a, b)
+               for a, b in zip(out, topk_compress_plain(x, 10)))
     with pytest.raises(ValueError):
         topk_compress(torch.zeros(10), 11)
     with pytest.raises(TypeError):
