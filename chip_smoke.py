@@ -43,13 +43,30 @@ From the root of a checkout, with one card.  In order it:
    same data, and holds the two against each other: for norm_trim and each
    kernel head of the comparison rules, and at d = 4352 for the sharded
    top-k and the gridded center (:data:`SMALL_LARGE_D`, keep masks too);
-7. times each kernel call, its plain version and, where one PyTorch call
+7. the model zoo's dense decoder (slice 4): holds RMSNorm and flash
+   attention against their plain versions at gemma3-27b's shapes
+   (:data:`RMS_SHAPES`, :data:`FLASH_CASES`; float32 within 1e-5, bf16
+   within rtol 2^-7 and atol 1e-5); runs a reduced gemma3 with grouped kv
+   heads on the card and on the CPU over the same weights (forward and 20
+   greedy tokens); serves gemma3-27b at full width through
+   ``launch.serve.run_serving`` (:data:`SERVE`: 28.42 B bf16 parameters
+   made on the card, batch 4, 32 prompt tokens through the decode path and
+   32 greedy ones), asserting 125 RMSNorm launches a decode step and no
+   other; then ``Model.forward`` on a (1, 4096) prompt, asserting 62 flash
+   attention and 125 RMSNorm launches, each block and the logits held
+   against the same weights through the plain versions
+   (:data:`BLOCK_REL_TOL`, the plain forward's own one-ulp spread), each
+   block's norms and attention through the kernels on the plain calls'
+   inputs (bf16 tolerance above), and
+   the first 6 layers' bf16 logits against their float32 forward;
+8. times each kernel call, its plain version and, where one PyTorch call
    computes the same function (``torch.topk``, ``torch.sort``,
-   ``index_add_``), that call with CUDA events (``ms``, ``plain_ms``,
-   ``library_ms``: per call, host launch overhead included), the kernels
-   alone with ``torch.profiler`` (``device_ms``), and works out each
-   kernel's bound from this run's inputs; then profiles one round of
-   drive A and of each w8a spec.
+   ``index_add_``, ``F.rms_norm``, ``F.scaled_dot_product_attention``),
+   that call with CUDA events (``ms``, ``plain_ms``, ``library_ms``: per
+   call, host launch overhead included), the kernels alone with
+   ``torch.profiler`` (``device_ms``), and works out each kernel's bound
+   from this run's inputs; then profiles one round of drive A and of each
+   w8a spec.
 
 The line before the last carries the card's name and power limit, the one
 before it the kernels' JSON record; the last line is
@@ -58,6 +75,7 @@ without a CUDA device it exits 1 before doing anything.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -129,9 +147,46 @@ CUBIC_ATOL = 1e-5
 AGG_SHAPES = ((3, 1), (20, 300), (33, 513), (256, 4096), (300, 300))
 KRUM_RTOL = 1e-5
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and non-tensor fp32 ops/s
+# Slice 4, the model zoo's dense decoder: gemma3-27b at full width (62
+# layers in 5:1 local:global units, window 1024, d_model 5376, 32 query and
+# 16 kv heads of 128, d_ff 21504, vocab 262144; 28.42 B parameters, bf16),
+# served as launch/serve.py's defaults serve it, then one batched prefill
+SERVE = dict(arch="gemma3-27b", preset="full", batch=4, prompt_len=32,
+             gen=32)
+GEMMA_PARAMS = 28_417_605_888
+GEMMA_LAYERS = 62
+NORMS_PER_PASS = 2 * GEMMA_LAYERS + 1      # two a block and the final norm
+PREFILL_LEN = 4096
+# the kernels' own checks: RMSNorm at the prefill and decode shapes; flash
+# attention at the prefill shape, global (window 0) and local (1024), and
+# at an S that is no multiple of the kernel's 64-row tile
+RMS_SHAPES = ((PREFILL_LEN, 5376), (SERVE["batch"], 5376))
+FLASH_HEADS = (32, 16, 128)
+FLASH_CASES = ((PREFILL_LEN, 0), (PREFILL_LEN, 1024), (4000, 0), (4000, 1024))
+# the model kernels against their plain versions: float32 within 1e-5; bf16
+# within rtol 2^-7 (one to two bf16 ulps: kernel and plain version differ
+# only in the order of their float32 sums before the cast) and atol 1e-5
+F32_TOL = 1e-5
+BF16_RTOL, BF16_ATOL = 2.0 ** -7, 1e-5
+# the bf16 forward through the kernels against the same forward through the
+# plain versions.  Both round to bf16 after every product and norm; where
+# they round apart (2^-8 relative) the difference runs on through the 62
+# layers, as any one-ulp difference does in this network.  So: each block,
+# given the same input, within 2^-7 relative (Frobenius) of the plain
+# block; the logits no further from the plain forward's than the plain
+# forward's own move when its embeddings move by one bf16 ulp; and over the
+# first 6 layers, the bf16 logits through the kernels as close to the
+# float32 forward's as the bf16 plain forward's, within 10 %
+BLOCK_REL_TOL = 2.0 ** -7
+CUT_DEPTH_SLACK = 1.1
+# a reduced gemma3 with grouped kv heads, run on the card and on the CPU
+SMALL_MODEL_KV_HEADS = 2
+
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, non-tensor fp32 ops/s
+# and dense bf16 tensor-core ops/s
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
+PEAK_BF16_OPS_PER_S = 989e12
 
 
 def log(msg: str) -> None:
@@ -201,9 +256,9 @@ def kernel_device_ms(fn, reps: int, kernel: str):
     return device_ms_by_name(fn, reps, (kernel,))[kernel]
 
 
-def bound_ms(n_bytes: float, n_ops: float):
+def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float = PEAK_OPS_PER_S):
     t_bytes = n_bytes / PEAK_BYTES_PER_S
-    t_ops = n_ops / PEAK_OPS_PER_S
+    t_ops = n_ops / ops_per_s
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -602,6 +657,27 @@ def check_small_large_d_against_cpu():
         f"CPU agree, loss {hg['loss']} vs {hc['loss']}, equal keep masks")
 
 
+def profiled(fn):
+    """One call of ``fn`` under ``torch.profiler``, after a synchronise:
+    its host-clock milliseconds (ending in a synchronise), the device's busy
+    milliseconds, and (device ms, count, name) of each device event name,
+    the largest first."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = sorted(((getattr(e, "device_time_total",
+                            getattr(e, "cuda_time_total", 0.0)) / 1e3,
+                    e.count, e.key[:90]) for e in prof.key_averages()),
+                  reverse=True)
+    return wall_ms, sum(r[0] for r in rows), rows
+
+
 def round_breakdown(spec_kw: dict = W8A, phases: bool = True,
                     label: str = "w8a") -> None:
     """Profile one round (``step``) of ``spec_kw`` on the card: the
@@ -611,7 +687,6 @@ def round_breakdown(spec_kw: dict = W8A, phases: bool = True,
     each."""
     import torch
     from torch.func import grad
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.api import ExperimentSpec
     from repro_torch.core import solve_cubic_gd
@@ -621,17 +696,8 @@ def round_breakdown(spec_kw: dict = W8A, phases: bool = True,
     cfg = algo.config
     gen = torch.Generator(device="cuda").manual_seed(0)
     w, v, st, _ = algo.step(p.w0, p.X_workers, p.y_workers, gen)  # warm-up
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        algo.step(w, p.X_workers, p.y_workers, gen, v, st)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = sorted(((getattr(e, "device_time_total",
-                            getattr(e, "cuda_time_total", 0.0)) / 1e3,
-                    e.count, e.key[:90]) for e in prof.key_averages()),
-                  reverse=True)
-    busy_ms = sum(r[0] for r in rows)
+    wall_ms, busy_ms, rows = profiled(
+        lambda: algo.step(w, p.X_workers, p.y_workers, gen, v, st))
     top = "; ".join(f"{name} x{n}: {ms:.4f} ms" for ms, n, name in rows[:8])
     ours = ("krum_scores", "sort_workers", "sparse_agg", "topk_compress",
             "hist_kernel", "select_kernel", "count_kernel", "pack_kernel")
@@ -884,6 +950,501 @@ def time_gisette_kernels(inp: dict, launches: dict) -> list:
     ]
 
 
+def close_to_plain(got, want, what: str) -> float:
+    """Hold a model kernel's output against its plain version's at
+    :data:`F32_TOL` (float32) or :data:`BF16_RTOL`/:data:`BF16_ATOL`
+    (bf16); return the largest absolute difference."""
+    import torch
+
+    check(got.dtype == want.dtype and got.shape == want.shape,
+          (what, got.dtype, want.dtype, tuple(got.shape), tuple(want.shape)))
+    g, w = got.float(), want.float()
+    check(bool(torch.isfinite(g).all()), (what, "finite"))
+    rtol, atol = ((BF16_RTOL, BF16_ATOL) if want.dtype == torch.bfloat16
+                  else (F32_TOL, F32_TOL))
+    diff = (g - w).abs()
+    check(bool((diff <= atol + rtol * w.abs()).all()),
+          (what, float(diff.max())))
+    return float(diff.max())
+
+
+def flash_inputs(S: int, dtype, seed: int):
+    """q (1, S, 32, 128) and k, v (1, S, 16, 128): gemma3-27b's attention
+    at a (1, S) prefill."""
+    import torch
+
+    H, Hkv, Dh = FLASH_HEADS
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return tuple(torch.randn(1, S, h, Dh, generator=gen,
+                             device="cuda").to(dtype) for h in (H, Hkv, Hkv))
+
+
+def check_model_kernels() -> dict:
+    """RMSNorm and flash attention against their plain versions on the card
+    at the model's shapes (:data:`RMS_SHAPES`, :data:`FLASH_CASES`); returns
+    their largest errors."""
+    import torch
+
+    from repro_torch.kernels import (
+        attention_bshd,
+        attention_plain,
+        rmsnorm,
+        rmsnorm_plain,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rms_err = 0.0
+    for n, d in RMS_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            x = (3 * torch.randn(n, d, generator=gen, device="cuda")).to(dtype)
+            w = (0.1 * torch.randn(d, generator=gen, device="cuda")).to(dtype)
+            rms_err = max(rms_err, close_to_plain(
+                rmsnorm(x, w), rmsnorm_plain(x, w), ("rmsnorm", n, d, dtype)))
+    log(f"rmsnorm within its tolerance of the plain version at {RMS_SHAPES}, "
+        f"bf16 and float32 (largest |Δ| {rms_err:.3e})")
+    flash_err = 0.0
+    for i, (S, window) in enumerate(FLASH_CASES):
+        dtypes = ((torch.bfloat16,) if S == PREFILL_LEN
+                  else (torch.bfloat16, torch.float32))
+        for dtype in dtypes:
+            q, k, v = flash_inputs(S, dtype, seed=10 + i)
+            got = attention_bshd(q, k, v, causal=True, window=window)
+            torch.cuda.synchronize()
+            want = attention_plain(q, k, v, causal=True, window=window)
+            err = close_to_plain(got, want, ("flash_attention", S, window,
+                                              dtype))
+            flash_err = max(flash_err, err)
+            del q, k, v, got, want
+    log(f"flash_attention within its tolerance of the plain version at "
+        f"(1, S, 32/16, 128), (S, window) in {FLASH_CASES}, bf16 (and "
+        f"float32 at S = 4000) (largest |Δ| {flash_err:.3e})")
+    return {"rms_err": rms_err, "flash_err": flash_err}
+
+
+def check_small_model_against_cpu() -> None:
+    """A reduced gemma3 (6 layers, window 16, float32) with grouped kv heads
+    on the card (the kernels) and on the CPU (the plain versions), over the
+    same weights: the forward of a (2, 100) prompt (S no multiple of the
+    kernel's tile, past the window) within 1e-4, and 20 greedy tokens
+    after a 24-token prompt equal, their logits within 1e-4."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.launch.serve import greedy_generate
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config("gemma3-27b").reduced(),
+                              num_kv_heads=SMALL_MODEL_KV_HEADS)
+    cpu = build_model(cfg, device="cpu")
+    card = build_model(cfg, device="cuda")
+    p_cpu = cpu.init(3)
+    p_card = copy.deepcopy(p_cpu).to("cuda")
+    toks, _ = TokenStream(cfg.vocab_size, 3, device="cpu").batch(0, 2, 100)
+    lg_card, _ = card.forward(p_card, toks.cuda())
+    lg_cpu, _ = cpu.forward(p_cpu, toks)
+    fwd_err = float((lg_card.cpu() - lg_cpu).abs().max())
+    check(fwd_err <= 1e-4, ("reduced forward, card vs CPU", fwd_err))
+    out_card = greedy_generate(card, p_card, toks[:, :24].cuda(), 20)
+    out_cpu = greedy_generate(cpu, p_cpu, toks[:, :24], 20)
+    check(torch.equal(out_card["tokens"].cpu(), out_cpu["tokens"]),
+          "reduced greedy tokens, card vs CPU")
+    dec_err = float((out_card["logits"].cpu() - out_cpu["logits"]).abs().max())
+    check(dec_err <= 1e-4, ("reduced decode logits, card vs CPU", dec_err))
+    log(f"reduced gemma3 (kv heads {SMALL_MODEL_KV_HEADS}): card and CPU "
+        f"agree, forward max |Δ| {fwd_err:.3e}, 20 greedy tokens equal, "
+        f"decode logits max |Δ| {dec_err:.3e}")
+
+
+def serve_full_width() -> dict:
+    """Serve gemma3-27b at full width through ``run_serving`` (the user's
+    entry point): counts set to 0 just before, read just after; one RMSNorm
+    launch per norm of every decode step, no other kernel."""
+    import torch
+
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.serve import run_serving
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = run_serving(**SERVE)
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    steps = SERVE["prompt_len"] + SERVE["gen"]
+    check(res["device"].type == "cuda", res["device"])
+    check(res["param_count"] == GEMMA_PARAMS, res["param_count"])
+    check(res["wire"]["downlink_bits"] == 32 * GEMMA_PARAMS, res["wire"])
+    toks = res["tokens"]
+    check(tuple(toks.shape) == (SERVE["batch"], SERVE["gen"])
+          and bool(((toks >= 0) & (toks < res["cfg"].padded_vocab)).all()),
+          ("served tokens", tuple(toks.shape)))
+    check(launches == {name: NORMS_PER_PASS * steps if name == "rmsnorm"
+                       else 0 for name in launches}, launches)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"served {res['cfg'].name} at full width ({res['param_count']} "
+        f"parameters, bf16): broadcast {res['wire']['downlink_bits']} bits; "
+        f"prefill {SERVE['prompt_len']} tokens {res['prefill_s']:.3f} s, "
+        f"decode {SERVE['gen']} tokens {res['decode_s']:.3f} s "
+        f"({res['tok_per_s']:.1f} tok/s), step p50 "
+        f"{res['p50_s'] * 1e3:.3f} ms p99 {res['p99_s'] * 1e3:.3f} ms; "
+        f"{wall:.1f} s in all with the weights' init, peak {peak:.1f} GiB; "
+        f"launches {launches} ({NORMS_PER_PASS} RMSNorm a step)")
+    return {"launches": launches, "res": res}
+
+
+@contextlib.contextmanager
+def plain_versions(held=None):
+    """Run the models' norms and attention through the kernels' plain
+    versions (on the card) while the block lives: the comparison path.
+    With a list ``held``, each plain call also runs its kernel on the same
+    inputs, holds the two by :func:`close_to_plain` and appends
+    ``(name, largest |Δ|, relative Frobenius error)`` to ``held``."""
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.kernels import (
+        attention_bshd,
+        attention_plain,
+        rmsnorm_nd,
+        rmsnorm_plain,
+    )
+    from repro_torch.models import attention, layers
+
+    def hold(name, kernel, plain_out):
+        if held is not None:
+            got = kernel()
+            w = plain_out.float()
+            held.append((name, close_to_plain(got, plain_out, name),
+                         float(torch.linalg.vector_norm(got.float() - w)
+                               / torch.linalg.vector_norm(w))))
+        return plain_out
+
+    def plain_norm(x, w, eps=1e-6):
+        return hold("rmsnorm", lambda: rmsnorm_nd(x, w, eps=eps),
+                    rmsnorm_plain(x, w, eps))
+
+    def plain_attention(q, k, v, *, causal=True, window=None, **_):
+        return hold("flash_attention",
+                    lambda: attention_bshd(q, k, v, causal=causal,
+                                           window=window or 0),
+                    attention_plain(q, k, v, causal=causal,
+                                    window=window or 0))
+
+    with mock.patch.object(layers, "rms_norm", plain_norm), \
+            mock.patch.object(attention, "chunked_attention", plain_attention):
+        yield
+
+
+def compare(a, b, rows: int = 512) -> dict:
+    """``a`` against ``b`` over their last axis, a slab of rows at a time in
+    float32 (the logits are 2 GiB in bf16): ‖a − b‖ / ‖b‖ (``rel``), the
+    largest |a − b| and the share of rows whose argmax agree."""
+    import torch
+
+    a2, b2 = a.reshape(-1, a.shape[-1]), b.reshape(-1, b.shape[-1])
+    diff2 = ref2 = 0.0
+    max_abs, agree = 0.0, 0
+    for i in range(0, a2.shape[0], rows):
+        x, y = a2[i:i + rows].float(), b2[i:i + rows].float()
+        diff2 += float(torch.sum((x - y).double() ** 2))
+        ref2 += float(torch.sum(y.double() ** 2))
+        max_abs = max(max_abs, float((x - y).abs().max()))
+        agree += int((x.argmax(-1) == y.argmax(-1)).sum())
+    return {"rel": math.sqrt(diff2 / ref2), "max_abs": max_abs,
+            "argmax_agree": agree / a2.shape[0]}
+
+
+def prefill_full_width() -> dict:
+    """``Model.forward`` of gemma3-27b at full width on a (1, 4096) prompt:
+    counts set to 0 just before, read just after (62 flash attention and 125
+    RMSNorm launches).  Then, over the same weights: every block through the
+    kernels against the same block through the plain versions on the plain
+    path's input (:data:`BLOCK_REL_TOL`), and each of its norms and its
+    attention through the kernel on the plain calls' inputs
+    (:func:`close_to_plain`); the whole forward through the
+    plain versions (no launch), and the kernel forward's logits held against
+    it within the spread the plain forward itself shows when its
+    embeddings move by one bf16 ulp."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import build_model
+
+    cfg = get_config(SERVE["arch"])
+    model = build_model(cfg)
+    params = model.init(1)
+    toks, _ = TokenStream(cfg.vocab_size, 1).batch(0, 1, PREFILL_LEN)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_launches()
+    t0 = time.perf_counter()
+    logits, _ = model.forward(params, toks)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    check(launches == {name: {"flash_attention": GEMMA_LAYERS,
+                              "rmsnorm": NORMS_PER_PASS}.get(name, 0)
+                       for name in launches}, launches)
+    check(tuple(logits.shape) == (1, PREFILL_LEN, cfg.padded_vocab)
+          and bool(torch.isfinite(logits).all()), "finite prefill logits")
+    t0 = time.perf_counter()
+    for _ in range(2):
+        model.forward(params, toks)
+    torch.cuda.synchronize()
+    kernel_s = (time.perf_counter() - t0) / 2
+
+    # each block on the plain path's input: its output, and each of its two
+    # norms and its attention through the kernel on the plain call's inputs
+    x = params.embed[toks]
+    pos = torch.arange(PREFILL_LEN, device="cuda").expand(1, PREFILL_LEN)
+    block_errs, parts = [], []
+    for block in params.layers:
+        y_kernel = block.apply(x, cfg, pos)
+        with plain_versions(held=parts):
+            x = block.apply(x, cfg, pos)
+        block_errs.append(compare(y_kernel, x)["rel"])
+    del y_kernel, x
+    check([name for name, _, _ in parts]
+          == ["rmsnorm", "flash_attention", "rmsnorm"] * GEMMA_LAYERS,
+          "each block's norms and attention held")
+    part_errs = {name: (max(e for n, e, _ in parts if n == name),
+                        max(r for n, _, r in parts if n == name))
+                 for name in ("rmsnorm", "flash_attention")}
+
+    reset_launches()
+    with plain_versions():
+        t0 = time.perf_counter()
+        plain, _ = model.forward(params, toks)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        check(not any(LAUNCHES.values()), ("plain forward launched",
+                                           LAUNCHES))
+        # the plain forward's own spread: its embeddings moved by one bf16
+        # ulp (towards +inf) in a random half of the prompt's entries
+        rows = torch.unique(toks)
+        saved = params.embed.data[rows].clone()
+        gen = torch.Generator(device="cuda").manual_seed(9)
+        up = torch.nextafter(saved, torch.full_like(saved, math.inf))
+        params.embed.data[rows] = torch.where(
+            torch.rand(saved.shape, generator=gen, device="cuda") < 0.5,
+            up, saved)
+        nudged, _ = model.forward(params, toks)
+        params.embed.data[rows] = saved
+        del saved, up
+    got, spread = compare(logits, plain), compare(nudged, plain)
+    rel, floor = got["rel"], spread["rel"]
+    log(f"prefill forward (1, {PREFILL_LEN}) at full width: first "
+        f"{first_s:.3f} s, then {kernel_s:.3f} s a forward (the plain "
+        f"versions' {plain_s:.3f} s); peak +{peak:.2f} GiB over the weights; "
+        f"launches {launches}; each block through the kernels vs the plain "
+        f"versions on one input: relative {min(block_errs):.3e} to "
+        f"{max(block_errs):.3e} (tolerance {BLOCK_REL_TOL:.3e}); each "
+        f"block's norms and attention through the kernel on the plain "
+        f"calls' inputs, within rtol {BF16_RTOL:.3e} and atol "
+        f"{BF16_ATOL:.0e} (largest |Δ|, largest relative): "
+        f"{ {n: (f'{a:.3e}', f'{r:.3e}') for n, (a, r) in part_errs.items()} }"
+        f"; logits vs "
+        f"the plain forward: relative {rel:.3e}, max |Δ| "
+        f"{got['max_abs']:.3e}, argmax equal at "
+        f"{100 * got['argmax_agree']:.2f} % of positions; the plain forward "
+        f"with its embeddings nudged by one bf16 ulp: relative {floor:.3e}, "
+        f"max |Δ| {spread['max_abs']:.3e}, argmax equal at "
+        f"{100 * spread['argmax_agree']:.2f} %")
+    check(max(block_errs) <= BLOCK_REL_TOL, ("block vs plain", block_errs))
+    check(rel <= floor, ("prefill logits vs plain", rel, floor))
+    del logits, plain, nudged
+    model_breakdown(model, params, toks)
+    del params
+    torch.cuda.empty_cache()
+    return {"launches": launches, "forward_s": kernel_s, "plain_s": plain_s,
+            "rel": rel, "floor": floor, "peak_gib": peak,
+            "block_errs": block_errs, "part_errs": part_errs}
+
+
+def model_breakdown(model, params, toks) -> None:
+    """Profile one (1, 4096) forward and one decode step of batch 4 at
+    position 63 of a 64-token cache (the serving run's last): host-clock
+    time, device busy time and share, the kernels by device time."""
+    import torch
+
+    cache = model.init_cache(SERVE["batch"], 64)
+    tok = toks[0, :SERVE["batch"]]
+    for t in range(3):   # warm-up
+        model.decode_step(params, cache, tok, t)
+    for label, fn in (
+            ("forward (1, 4096)", lambda: model.forward(params, toks)),
+            ("decode step (batch 4)",
+             lambda: model.decode_step(params, cache, tok, 63))):
+        wall_ms, busy_ms, rows = profiled(fn)
+        ours = {name: (ms, n) for ms, n, name in rows
+                if "rmsnorm_kernel" in name or "flash_kernel" in name}
+        top = "; ".join(f"{name} x{n}: {ms:.3f} ms"
+                        for ms, n, name in rows[:10])
+        log(f"gemma3-27b {label}, profiled: {wall_ms:.3f} ms on the host "
+            f"clock, device busy {busy_ms:.3f} ms "
+            f"({100 * busy_ms / wall_ms:.1f} %) in "
+            f"{sum(n for ms, n, _ in rows if ms > 0)} kernels and copies; "
+            f"the two kernels "
+            f"{ {k[:40]: (round(v[0], 4), v[1]) for k, v in ours.items()} }; "
+            f"top: {top}")
+
+
+def cut_depth_against_float32() -> dict:
+    """gemma3-27b's first unit (6 layers, 5 local and 1 global) at full
+    width: the float32 forward through the plain versions is the yardstick,
+    and the bf16 forward through the kernels must come as close to it as
+    the bf16 forward through the plain versions, within
+    :data:`CUT_DEPTH_SLACK`.  The bf16 weights are the float32 ones rounded
+    (one seed: ``init`` draws in float32 and casts)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config(SERVE["arch"]), num_layers=6,
+                              dtype="float32")
+    model = build_model(cfg)
+    p32 = model.init(1)
+    toks, _ = TokenStream(cfg.vocab_size, 1).batch(0, 1, PREFILL_LEN)
+    with plain_versions():
+        l32, _ = model.forward(p32, toks)
+    del p32
+    p16 = build_model(dataclasses.replace(cfg, dtype="bfloat16")).init(1)
+    lk, _ = model.forward(p16, toks)
+    with plain_versions():
+        lp, _ = model.forward(p16, toks)
+    err_k, err_p = compare(lk, l32)["rel"], compare(lp, l32)["rel"]
+    log(f"6 layers at full width, (1, {PREFILL_LEN}): bf16 logits through "
+        f"the kernels {err_k:.4e} and through the plain versions {err_p:.4e} "
+        f"from the float32 plain forward (relative)")
+    check(err_k <= CUT_DEPTH_SLACK * err_p, ("cut depth", err_k, err_p))
+    del p16, l32, lk, lp
+    torch.cuda.empty_cache()
+    return {"kernel_vs_f32": err_k, "plain_vs_f32": err_p}
+
+
+def visible_pairs(S: int, window: int) -> int:
+    """(query, key) pairs the causal mask (and the window) leave visible."""
+    if window <= 0 or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def time_model_kernels(inp: dict, launches: dict) -> list:
+    """The records of RMSNorm at the prefill shape (and the decode shape)
+    and flash attention at a global and a local layer of the prefill."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import (
+        attention_bshd,
+        attention_plain,
+        rmsnorm,
+        rmsnorm_plain,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    rms = {}
+    for n, d in RMS_SHAPES:
+        x = (3 * torch.randn(n, d, generator=gen, device="cuda")).bfloat16()
+        w = (0.1 * torch.randn(d, generator=gen, device="cuda")).bfloat16()
+        w1 = 1 + w
+        reps = 200 if n > 64 else 1000
+        n_bytes = 2 * (2 * n * d + d)
+        rms[(n, d)] = {
+            "ms": cuda_ms(lambda: rmsnorm(x, w), reps),
+            "device_ms": kernel_device_ms(lambda: rmsnorm(x, w), reps,
+                                          "rmsnorm_kernel"),
+            "plain_ms": cuda_ms(lambda: rmsnorm_plain(x, w), reps),
+            "library_ms": cuda_ms(lambda: F.rms_norm(x, (d,), w1, 1e-6), reps),
+            # x read and the result written once, bf16; 4 operations an
+            # element (square-add, then two multiplies and the cast)
+            "bound": bound_ms(n_bytes, 4 * n * d),
+        }
+    flash = {}
+    H, Hkv, Dh = FLASH_HEADS
+    for window in (0, 1024):
+        q, k, v = flash_inputs(PREFILL_LEN, torch.bfloat16, seed=20)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        if window:
+            pos = torch.arange(PREFILL_LEN, device="cuda")
+            band = ((pos[None, :] <= pos[:, None])
+                    & (pos[None, :] > pos[:, None] - window))
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, attn_mask=band, enable_gqa=True)
+        else:
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, is_causal=True, enable_gqa=True)
+        pairs = visible_pairs(PREFILL_LEN, window)
+        flash[window] = {
+            "ms": cuda_ms(lambda: attention_bshd(q, k, v, window=window), 10),
+            "device_ms": kernel_device_ms(
+                lambda: attention_bshd(q, k, v, window=window), 10,
+                "flash_kernel"),
+            "plain_ms": cuda_ms(lambda: attention_plain(q, k, v,
+                                                        window=window), 3,
+                                warmup=1),
+            "library_ms": cuda_ms(lib, 10),
+            "visible_pairs": pairs,
+            # q, k, v read and the output written once, bf16; Q·Kᵀ and P·V
+            # over the visible pairs, 4·Dh operations a pair and head, at
+            # the bf16 tensor-core rate
+            "bound": bound_ms(2 * PREFILL_LEN * Dh * (2 * H + 2 * Hkv),
+                              4 * Dh * H * pairs, PEAK_BF16_OPS_PER_S),
+        }
+        del q, k, v, qt, kt, vt
+    log(f"rmsnorm (ms): {json.dumps({str(k): v for k, v in rms.items()})}")
+    log(f"flash_attention (ms, by window): {json.dumps(flash)}")
+    pre, dec = rms[RMS_SHAPES[0]], rms[RMS_SHAPES[1]]
+    glob, loc = flash[0], flash[1024]
+    return [
+        {"name": "rmsnorm", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
+         "replaces": "src/repro/kernels/rmsnorm.py:35",
+         "launches": launches["rmsnorm"], "max_abs_err": inp["rms_err"],
+         "ms": pre["ms"], "plain_ms": pre["plain_ms"],
+         "bound_ms": pre["bound"][0], "bound_by": pre["bound"][1],
+         "library_ms": pre["library_ms"], "device_ms": pre["device_ms"],
+         "shape": list(RMS_SHAPES[0]), "dtype": "bfloat16",
+         "at_decode_shape": {"shape": list(RMS_SHAPES[1]),
+                             "ms": dec["ms"], "device_ms": dec["device_ms"],
+                             "plain_ms": dec["plain_ms"],
+                             "library_ms": dec["library_ms"],
+                             "bound_ms": dec["bound"][0],
+                             "bound_by": dec["bound"][1]}},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:113",
+         "launches": launches["flash_attention"],
+         "max_abs_err": inp["flash_err"], "ms": glob["ms"],
+         "plain_ms": glob["plain_ms"], "bound_ms": glob["bound"][0],
+         "bound_by": glob["bound"][1], "library_ms": glob["library_ms"],
+         "device_ms": glob["device_ms"],
+         "shape": [1, PREFILL_LEN, H, Hkv, Dh], "dtype": "bfloat16",
+         "window": 0, "visible_pairs": glob["visible_pairs"],
+         "at_window_1024": {"ms": loc["ms"], "device_ms": loc["device_ms"],
+                            "plain_ms": loc["plain_ms"],
+                            "library_ms": loc["library_ms"],
+                            "library": "scaled_dot_product_attention with a "
+                                       "boolean band mask",
+                            "visible_pairs": loc["visible_pairs"],
+                            "bound_ms": loc["bound"][0],
+                            "bound_by": loc["bound"][1]}},
+    ]
+
+
 def main() -> int:
     import torch
 
@@ -940,17 +1501,27 @@ def main() -> int:
     check_small_against_cpu()
     check_small_large_d_against_cpu()
 
+    # slice 4: the model zoo's dense decoder, gemma3-27b at full width
+    model_inp = check_model_kernels()
+    check_small_model_against_cpu()
+    serve = serve_full_width()
+    prefill = prefill_full_width()
+    cut_depth_against_float32()
+
     # each kernel's launches in the first run that drives it
     runs = {"ef21_norm_trim_5_rounds": launches,
             "sparse_center_3_rounds": sparse_launches,
             **{f"{rule}_3_rounds": n for rule, n in rule_launches.items()},
             "gisette_sparse_center_3_rounds": a_launches,
-            "gisette_adaptive_k_4_rounds": b_launches}
+            "gisette_adaptive_k_4_rounds": b_launches,
+            "serve_gemma3_27b_4x(32+32)": serve["launches"],
+            "prefill_gemma3_27b_1x4096": prefill["launches"]}
     first = {name: next((n[name] for n in runs.values() if n[name]), 0)
              for name in launches}
     kernels = time_kernels(inputs, first)
     kernels[0]["at_gisette"] = ginp["cubic"]
     kernels += time_gisette_kernels(ginp, first)
+    kernels += time_model_kernels(model_inp, first)
     round_breakdown(DRIVE_A, label="gisette (d = 5000) sparse-center")
     round_breakdown()
     for rule in W8A_RULES:

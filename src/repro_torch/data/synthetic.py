@@ -8,6 +8,8 @@ through :mod:`repro_torch.interop` instead).
   published a9a / w8a shapes, from a ground-truth separator + label noise.
 * Robust-regression data with heavy-tailed outliers (the target of the
   paper's non-convex loss, Eq. (9)).
+* Token streams for the LM architectures (Zipf-distributed with a bigram
+  rule, :class:`TokenStream`).
 
 Every generator draws on ``generator``'s device, so the data are made in
 bulk where they are used.  The draws depend on that device as well as the
@@ -17,6 +19,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from .._device import resolve_device
@@ -88,3 +91,47 @@ def paper_dataset(workload, seed=0, device=None):
         "y_test": yte,
         "w_star": w_star,
     }
+
+
+# ----------------------------- LM token streams ---------------------------
+
+
+class TokenStream:
+    """Zipf + bigram synthetic token source, deterministic per (seed, step),
+    on ``device`` (the card unless ``device="cpu"``).
+
+    The law is the reference's: tokens are drawn from the first
+    ``min(vocab_size, 4096)`` ids with probability ∝ rank^(-zipf_a), and
+    every odd position holds the previous token plus a fixed shift (drawn
+    from numpy's generator as the reference draws it, so the shift is the
+    reference's).  The draws come from a ``torch.Generator``, so the tokens
+    follow the reference's distribution but are not its tokens.
+    """
+
+    def __init__(self, vocab_size: int, seed: int = 0, zipf_a: float = 1.2,
+                 device=None):
+        self.vocab = vocab_size
+        self.seed = seed
+        self.device = resolve_device(device)
+        # a modest working vocabulary, so the bigram structure is learnable
+        self.active = min(vocab_size, 4096)
+        rng = np.random.default_rng(seed)
+        self._shift = int(rng.integers(1, self.active - 1))
+        ranks = np.arange(1, self.active + 1, dtype=np.float64)
+        p = ranks ** (-zipf_a)
+        self._probs = torch.tensor(p / p.sum(), dtype=torch.float32,
+                                   device=self.device)
+
+    def batch(self, step: int, batch_size: int, seq_len: int):
+        """tokens, targets: (batch, seq) int64."""
+        state = np.random.SeedSequence([self.seed, step]).generate_state(2)
+        gen = torch.Generator(device=self.device).manual_seed(
+            int(state[0]) << 32 | int(state[1]))
+        base = torch.multinomial(self._probs, batch_size * (seq_len + 1),
+                                 replacement=True, generator=gen)
+        base = base.reshape(batch_size, seq_len + 1)
+        # the bigram: odd positions hold the shifted copy of the token before
+        odd = torch.arange(seq_len + 1, device=self.device) % 2 == 1
+        shifted = (torch.roll(base, 1, dims=1) + self._shift) % self.active
+        toks = torch.where(odd[None, :], shifted, base)
+        return toks[:, :-1], toks[:, 1:]

@@ -13,7 +13,13 @@ version beside it in the same module:
   ``krum_scores_fused`` and ``sort_workers_fused``; and the sparse center:
   its scatter branch up to d = 4096 (plain PyTorch, as in the reference)
   and the gridded kernel beyond (``csrc/sparse_agg.cu``), replacing the
-  reference's Pallas ``aggregate_sparse_gridded``.
+  reference's Pallas ``aggregate_sparse_gridded``;
+* :mod:`.rmsnorm` -- RMSNorm over the last axis (``csrc/rmsnorm.cu``),
+  replacing the reference's Pallas ``rmsnorm``;
+* :mod:`.flash_attention` -- causal and sliding-window attention with an
+  online softmax on the model's (B, S, H, Dh) layout
+  (``csrc/flash_attention.cu``), replacing the reference's Pallas
+  ``flash_attention`` behind ``ops.py::attention_bshd``.
 
 A wrapper launches its kernel on a CUDA tensor, or raises; it runs the plain
 version on a CPU tensor.  :data:`LAUNCHES` counts the kernel launches.
@@ -26,6 +32,8 @@ from .cubic_step import (
     cubic_step,
     default_lr,
 )
+from .flash_attention import attention_bshd, attention_plain
+from .rmsnorm import rmsnorm, rmsnorm_nd, rmsnorm_plain
 from .robust_agg import (
     SPARSE_SCATTER_MAX_D,
     agg_kernel_plan,
@@ -57,6 +65,8 @@ __all__ = [
     "aggregate_sparse",
     "aggregate_sparse_gridded",
     "aggregate_sparse_plain",
+    "attention_bshd",
+    "attention_plain",
     "build_all",
     "coordinate_median_fused",
     "cubic_solve",
@@ -69,6 +79,9 @@ __all__ = [
     "krum_scores_plain",
     "krum_select_fused",
     "reset_launches",
+    "rmsnorm",
+    "rmsnorm_nd",
+    "rmsnorm_plain",
     "sort_workers",
     "sort_workers_plain",
     "topk_compress",

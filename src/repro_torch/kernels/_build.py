@@ -42,6 +42,9 @@ ENTRY_POINTS = {
     "topk_sharded": ("topk_sharded_launch",
                      [_P, _P, _P, _P, _I, _I, _I, _P]),
     "sparse_agg": ("sparse_agg_launch", [_P, _P, _P, _P, _I, _I, _I, _P]),
+    "rmsnorm": ("rmsnorm_launch", [_P, _P, _P, _I, _I, _F, _I, _I, _I, _P]),
+    "flash_attention": ("flash_attention_launch",
+                        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
 }
 
 _lock = threading.Lock()

@@ -13,10 +13,14 @@ from repro_torch.kernels import (
     LAUNCHES,
     aggregate_sparse_gridded,
     aggregate_sparse_plain,
+    attention_bshd,
+    attention_plain,
     cubic_solve,
     cubic_solve_plain,
     krum_scores,
     krum_scores_plain,
+    rmsnorm,
+    rmsnorm_plain,
     sort_workers,
     sort_workers_plain,
     topk_compress,
@@ -142,3 +146,56 @@ def test_sparse_agg_kernel_equals_plain(cuda, m, k, d, dup):
         want = aggregate_sparse_plain(vals, idx, d, w)
         assert torch.equal(out.view(torch.int32), want.view(torch.int32))
     assert LAUNCHES["sparse_agg"] == before + 3
+
+
+# The model kernels against their plain versions: float32 within 1e-5, bf16
+# within rtol 2^-7 (one to two bf16 ulps: kernel and plain version differ
+# only in the order of their float32 sums before the cast) and atol 1e-5
+# (values near 0, where that float32 difference is not small beside them)
+F32_TOL = 1e-5
+BF16_RTOL, BF16_ATOL = 2.0 ** -7, 1e-5
+
+
+def _close(got, want):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    rtol, atol = ((BF16_RTOL, BF16_ATOL) if want.dtype == torch.bfloat16
+                  else (F32_TOL, F32_TOL))
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.parametrize("n,d", [(1, 64), (3, 100), (4, 5376), (4096, 5376),
+                                 (5, 16384)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_kernel_matches_plain(cuda, n, d, dtype):
+    """Row counts that are no multiple of a tile, a row width with no
+    16-byte loads (d = 100), the model's prefill and decode shapes, and
+    norm weights of the other dtype."""
+    gen = torch.Generator(device=cuda).manual_seed(n + d)
+    x = (3 * torch.randn(n, d, generator=gen, device=cuda)).to(dtype)
+    w = 0.1 * torch.randn(d, generator=gen, device=cuda)
+    before = LAUNCHES["rmsnorm"]
+    for ww in (w.to(dtype), w):
+        _close(rmsnorm(x, ww), rmsnorm_plain(x, ww))
+    assert LAUNCHES["rmsnorm"] == before + 2
+
+
+@pytest.mark.parametrize("B,S,H,Hkv,Dh", [(2, 100, 4, 2, 64),
+                                          (1, 200, 4, 4, 128),
+                                          (1, 4096, 32, 16, 128),
+                                          (1, 4000, 32, 16, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain(cuda, B, S, H, Hkv, Dh, dtype):
+    """Causal, sliding windows (16 and the model's 1024) and no mask, with
+    grouped kv heads, at S a multiple of the kernel's tile and not."""
+    gen = torch.Generator(device=cuda).manual_seed(S * H + Dh)
+    q, k, v = (torch.randn(B, S, h, Dh, generator=gen, device=cuda).to(dtype)
+               for h in (H, Hkv, Hkv))
+    before = LAUNCHES["flash_attention"]
+    cases = ((True, 0), (True, 16), (True, 1024), (False, 0))
+    for causal, window in cases:
+        got = attention_bshd(q, k, v, causal=causal, window=window)
+        want = attention_plain(q, k, v, causal=causal, window=window)
+        assert bool(torch.isfinite(got.float()).all())
+        _close(got, want)
+    assert LAUNCHES["flash_attention"] == before + len(cases)
