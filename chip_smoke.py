@@ -10,10 +10,11 @@ From the root of a checkout, with one card.  In order it:
 2. prints the card's name and power limit;
 3. holds each kernel against its plain PyTorch version on the card, at the
    shapes of the w8a run (top-k exactly, ties included; the cubic solve
-   within an absolute 1e-5, the bound the CPU parity tests use for
-   Algorithm 2: one iteration more or less at the tolerance boundary moves
-   s by at most lr·tol, and the matvec sums in another order); then the
-   center's kernels over (m, d) in :data:`AGG_SHAPES`: the worker sort bit
+   within an absolute 1e-5 and one iteration, the bound the CPU parity tests
+   use for Algorithm 2: one iteration more or less at the tolerance boundary
+   moves s by at most lr·tol, and the cluster's sums run in another
+   order); then the center's kernels over (m, d) in :data:`AGG_SHAPES`:
+   the worker sort bit
    for bit (ties, ±0, ±inf and a NaN column included; also against the
    CPU's stable sort), krum's scores within rtol 1e-5 (distances summed in
    another order) and exactly on an integer stack, and krum's argmin
@@ -28,21 +29,33 @@ From the root of a checkout, with one card.  In order it:
    just before each run and read just after; the ledger's integers, a
    decreasing loss and one launch a round of each kernel the run uses (and
    none of the others) are asserted;
+   F1: the sparse center's determinism at w8a's width.  One round's
+   payloads (20, 30) with their norm_trim keep weights, summed on the card
+   twice by ``index_add_`` and on the CPU by the plain version, bit for bit
+   (what it finds is logged), then by ``aggregate_sparse`` on the card twice
+   and on the CPU, which must agree bit for bit; and :data:`W8A_SPARSE` for
+   3 rounds on the card and on the CPU over the same arrays: equal ledger
+   integers and equal keep masks each round;
 5. at gisette's width (d = 5000, LIBSVM's ``gisette``: 6000 rows, here a
    synthetic twin over m = 20 workers of 300 rows, :data:`DRIVE_A`), holds
    the cubic solve against its plain version on the first round's g and H,
    the sharded top-k against its plain version bit for bit over
    :data:`SHARDED_TOPK_SHAPES` (the round's own (20, 5000) updates, normal
-   and tie-heavy rows), and the gridded sparse center bit for bit over
+   and tie-heavy rows), and the sparse center bit for bit over
    :data:`SPARSE_AGG_SHAPES` (the round's own (20, 500) payloads, with 0/1
-   weights and without; duplicates within rows); then drives A (sparse
+   weights and without; w8a's width; duplicates within rows and across
+   workers at d ≤ 4096, through ``aggregate_sparse``); then drives A (sparse
    center, 3 rounds) and B (adaptive top-k with EF21, 4 rounds), with the
    same checks as the w8a drives, the bits of B following its k, which
-   must move;
+   must move; then the cubic solve against its plain version at the widths
+   of :data:`CUBIC_WIDTHS` (H resident in shared memory and streamed, d no
+   multiple of 4), at :data:`CUBIC_GLOBAL_S` (the iterate in device
+   memory), and at d = 10000, m = 20 (:data:`WIDE`, 8 GB of Hessians, past the 8192
+   floats a CTA once held; freed after), one launch a call;
 6. runs small specs on the card and on the CPU (plain versions), over the
    same data, and holds the two against each other: for norm_trim and each
    kernel head of the comparison rules, and at d = 4352 for the sharded
-   top-k and the gridded center (:data:`SMALL_LARGE_D`, keep masks too);
+   top-k and the sparse center (:data:`SMALL_LARGE_D`, keep masks too);
 7. the model zoo's dense decoder (slice 4): holds RMSNorm and flash
    attention against their plain versions at gemma3-27b's shapes
    (:data:`RMS_SHAPES`, :data:`FLASH_CASES`; float32 within 1e-5, bf16
@@ -59,14 +72,17 @@ From the root of a checkout, with one card.  In order it:
    block's norms and attention through the kernels on the plain calls'
    inputs (bf16 tolerance above), and
    the first 6 layers' bf16 logits against their float32 forward;
-8. times each kernel call, its plain version and, where one PyTorch call
-   computes the same function (``torch.topk``, ``torch.sort``,
+8. times each kernel call (the cubic solve at w8a and at d = 5000, the
+   sparse center at w8a and at drive A), its plain version and, where one
+   PyTorch call computes the same function (``torch.topk``, ``torch.sort``,
    ``index_add_``, ``F.rms_norm``, ``F.scaled_dot_product_attention``),
    that call with CUDA events (``ms``, ``plain_ms``, ``library_ms``: per
    call, host launch overhead included), the kernels alone with
-   ``torch.profiler`` (``device_ms``), and works out each kernel's bound
-   from this run's inputs; then profiles one round of drive A and of each
-   w8a spec.
+   ``torch.profiler`` (``device_ms``; the cubic solve also in the launch
+   plans of :data:`CUBIC_SWEEP_W8A` and :data:`CUBIC_SWEEP_GISETTE`, taken
+   in turn, three readings each), and
+   works out each kernel's bound from this run's inputs; then profiles one
+   round of drive A and of each w8a spec.
 
 The line before the last carries the card's name and power limit, the one
 before it the kernels' JSON record; the last line is
@@ -110,9 +126,9 @@ SMALL_RULES = ("norm_trim:0.4", "krum_kernel:2", "trimmed_mean_kernel:0.375",
                "coordinate_median_kernel")
 # The d = 5000 path: gisette's width (LIBSVM's ``gisette``, 6000 training
 # rows and 5000 features), a synthetic twin over m = 20 workers, 300 rows
-# each.  A: the sparse center, through the sharded top-k and the gridded
-# center; B: adaptive top-k through the sharded kernel at a moving k, EF21,
-# a dense center
+# each.  A: the sparse center, through the sharded top-k and the sparse
+# center's kernel; B: adaptive top-k through the sharded kernel at a moving
+# k, EF21, a dense center
 GISETTE = dict(problem="synthetic-logistic:6000:5000", m_workers=20,
                runtime="paper", solver="cubic_newton", M=10.0, gamma=1.0,
                eta=1.0, solver_tol=1e-6, solver_iters=500,
@@ -133,15 +149,44 @@ def gisette_uplink_bits(k: int) -> int:
 
 SHARDED_TOPK_SHAPES = ((20, 1409, 140), (20, 5000, 500), (20, 5000, 4999),
                        (2, 65536, 6553), (3, 65537, 1))
-# (m, k, d, duplicate indices within rows)
-SPARSE_AGG_SHAPES = ((20, 500, 5000, False), (8, 64, 8192, True),
+# (m, k, d, duplicate indices within rows and across workers): drive A's
+# payloads, w8a's width, and d ≤ 4096 (the reference's scatter width)
+SPARSE_AGG_SHAPES = ((20, 500, 5000, False), (20, 30, 300, False),
+                     (16, 100, 4096, True), (8, 64, 8192, True),
                      (3, 16, 65537, False))
+# the cubic solve against its plain version at these widths (m = 20):
+# H resident in shared memory up to 301, streamed beyond; d = 1, 123, 301
+# and 1001 no multiple of 4
+CUBIC_WIDTHS = (1, 123, 300, 301, 1001, 4352, 5000)
+# (m, d) where the rules keep the iterate in device memory: past d = 28544
+# (3.26 GB of H), iterations capped
+CUBIC_GLOBAL_S = (1, 28545)
+CUBIC_GLOBAL_S_ITERS = 100
+# the cubic kernel's device time in launch plans, the rules' pick among
+# them, on the same inputs as its record: (cluster size, mode) at w8a and
+# at d = 5000
+CUBIC_SWEEP_W8A = ((2, "resident"), (3, "resident"), (4, "resident"),
+                   (5, "resident"), (6, "resident"), (8, "resident"),
+                   (8, "streamed"))
+CUBIC_SWEEP_GISETTE = ((4, "streamed"), (6, "streamed"), (8, "streamed"),
+                       (16, "streamed"), (8, "streamed_global_s"))
+# past the 8192 floats a CTA once held: d = 10000, m = 20 (8 GB of
+# Hessians), a synthetic logistic problem of gisette's shape made wider
+WIDE = dict(GISETTE, problem="synthetic-logistic:6000:10000",
+            compressor="topk_kernel:0.1", error_feedback="none",
+            attack="flipped_label")
+WIDE_D = 10000
+# F1: how often index_add_ sums the w8a payloads on the card, for the record
+F1_INDEX_ADD_RUNS = 10
 # a spec past both single-tile bounds, small enough for the CPU
 SMALL_LARGE_D = dict(problem="synthetic-logistic:512:4352", m_workers=4,
                      solver_iters=100, compressor="topk_kernel:0.1",
                      error_feedback="none", aggregator="norm_trim:0.4",
                      attack="flipped_label", alpha=0.25)
 CUBIC_ATOL = 1e-5
+# and each worker's s within this share of its norm: the smallest workers'
+# entries are about 1e-5, the size of CUBIC_ATOL
+CUBIC_RTOL = 1e-4
 # the center's kernels: the w8a stack, odd shapes, m = 256 (the reference
 # kernel's on-chip bound) and m > 256
 AGG_SHAPES = ((3, 1), (20, 300), (33, 513), (256, 4096), (300, 300))
@@ -276,12 +321,188 @@ def first_round_solver_inputs(exp):
     return g, H, lr, cfg
 
 
+def cubic_close(s, iters, ps, piters, lr, tol, what):
+    """A cubic solve against the plain version's: s finite and within
+    :data:`CUBIC_ATOL`, iteration counts within one, and each worker's s
+    within :data:`CUBIC_RTOL` of its norm (plus 2·lr·tol, the most one
+    iteration more at the stop boundary moves it, where the counts differ).
+    Returns the largest |Δs|."""
+    import torch
+
+    check(s.shape == ps.shape and bool(torch.isfinite(s).all()),
+          (what, "finite solve of the expected shape"))
+    err = float((s - ps).abs().max())
+    check(err <= CUBIC_ATOL, (what, err))
+    check(int((iters - piters).abs().max()) <= 1,
+          (what, iters.tolist(), piters.tolist()))
+    slack = torch.where(iters == piters, 0.0, 2 * lr * max(tol, 0.0))
+    gap = torch.linalg.vector_norm(s - ps, dim=1)
+    bound = CUBIC_RTOL * torch.linalg.vector_norm(ps, dim=1) + slack
+    check(bool((gap <= bound).all()),
+          (what, "per-worker", (gap / bound).max().item()))
+    return err
+
+
+def hold_cubic(g, H, s0, lr, what, **kw):
+    """The cubic kernel against its plain version on the same inputs: one
+    launch and :func:`cubic_close`.  Returns (largest |Δs|, s, the kernel's
+    and the plain version's iterations)."""
+    import torch
+
+    from repro_torch.kernels import LAUNCHES, cubic_solve, cubic_solve_plain
+
+    before = LAUNCHES["cubic_solve"]
+    s, iters = cubic_solve(g, H, s0, lr, **kw)
+    torch.cuda.synchronize()
+    check(LAUNCHES["cubic_solve"] == before + 1, (what, "one launch"))
+    ps, piters = cubic_solve_plain(g, H, s0, lr, **kw)
+    err = cubic_close(s, iters, ps, piters, lr, kw["tol"], what)
+    return err, s, iters, piters
+
+
+def cubic_case(m: int, d: int, seed: int):
+    """A cubic sub-problem stack on the card: per worker a non-symmetric H
+    (a symmetric random part, positive definite for even workers and a
+    saddle for odd ones, plus a small non-symmetric part), gradients of
+    scales 1 to 1e-3 and step sizes in [0.1, 0.25], so that the workers
+    stop at different iterations."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    H = torch.empty(m, d, d, device="cuda")
+    for w in range(m):
+        A = torch.randn(d, d, generator=gen, device="cuda")
+        B = torch.randn(d, d, generator=gen, device="cuda")
+        H[w] = (A + A.T) / (2 * d ** 0.5) + 0.05 * B / d ** 0.5
+        if w % 2 == 0:
+            H[w].diagonal().add_(2.0)
+        del A, B
+    g = torch.randn(m, d, generator=gen, device="cuda") / d ** 0.5
+    g *= torch.logspace(0, -3, m, device="cuda")[:, None]
+    lr = 0.1 + 0.15 * torch.rand(m, generator=gen, device="cuda")
+    return g, H, lr
+
+
+CUBIC_CASE_KW = dict(M=10.0, gamma=1.0, tol=1e-6, max_iters=300)
+
+
+def check_cubic_widths() -> dict:
+    """The cubic kernel against its plain version at :data:`CUBIC_WIDTHS`
+    (m = 20) and at :data:`CUBIC_GLOBAL_S`, in the plans its rules pick,
+    from s = 0 and then one step from the kernel's answer; returns each
+    width's plan and errors."""
+    import torch
+
+    from repro_torch.kernels import cubic_plan, cubic_solve, cubic_solve_plain
+
+    out = {}
+    cases = [(20, d, CUBIC_CASE_KW) for d in CUBIC_WIDTHS]
+    cases.append((*CUBIC_GLOBAL_S,
+                  dict(CUBIC_CASE_KW, max_iters=CUBIC_GLOBAL_S_ITERS)))
+    for m, d, kw in cases:
+        g, H, lr = cubic_case(m, d, seed=d)
+        plan = cubic_plan(m, d)
+        err, s, it, _ = hold_cubic(g, H, torch.zeros_like(g), lr,
+                                   ("cubic width", m, d), **kw)
+        one, _ = cubic_solve(g, H, s, lr, M=10.0, gamma=1.0, tol=-1.0,
+                             max_iters=1)
+        p1, _ = cubic_solve_plain(g, H, s, lr, M=10.0, gamma=1.0, tol=-1.0,
+                                  max_iters=1)
+        step_err = float((one - p1).abs().max())
+        check(step_err <= 1e-6, ("cubic step", m, d, step_err))
+        out[f"{m}x{d}"] = {"cluster": plan.cluster, "mode": plan.mode,
+                           "max_abs_err": err, "step_err": step_err,
+                           "iterations": [int(it.min()), int(it.max())]}
+        del g, H, s, one, p1
+        torch.cuda.empty_cache()
+    modes = {v["mode"] for v in out.values()}
+    check(modes == {"resident", "streamed", "streamed_global_s"}, modes)
+    log(f"cubic_solve within {CUBIC_ATOL} (and {CUBIC_RTOL} of each "
+        f"worker's norm) and one iteration of its plain version at every "
+        f"width, in each mode, one launch a call: {json.dumps(out)}")
+    return out
+
+
+def check_cubic_wide() -> dict:
+    """The cubic solve at d = 10000, m = 20 (:data:`WIDE`'s first round: 8 GB
+    of closed-form Hessians) against its plain version; then frees them."""
+    import torch
+
+    from repro_torch.api import ExperimentSpec
+    from repro_torch.kernels import cubic_plan
+
+    exp = ExperimentSpec(**WIDE).build()
+    g, H, lr, cfg = first_round_solver_inputs(exp)
+    check(tuple(H.shape) == (20, WIDE_D, WIDE_D), tuple(H.shape))
+    kw = dict(M=cfg.M, gamma=cfg.gamma, tol=cfg.solver_tol,
+              max_iters=cfg.solver_iters)
+    plan = cubic_plan(20, WIDE_D)
+    t0 = time.perf_counter()
+    err, _, it, pit = hold_cubic(g, H, torch.zeros_like(g), lr, "d = 10000",
+                                 **kw)
+    wall = time.perf_counter() - t0
+    log(f"cubic_solve at d = {WIDE_D}, m = 20 ({H.numel() * 4 / 1e9:.2f} GB "
+        f"of Hessians): cluster {plan.cluster} CTAs a worker, H "
+        f"{plan.mode}; max |Δs| vs plain {err:.3e}, iterations {it.tolist()}"
+        f" vs {pit.tolist()}; kernel and plain {wall:.2f} s together")
+    del exp, g, H, lr
+    torch.cuda.empty_cache()
+    return {"shape": [20, WIDE_D], "cluster": plan.cluster,
+            "mode": plan.mode, "max_abs_err": err,
+            "iterations": int(it.sum())}
+
+
+def cubic_sweep(g, H, s0, lr, kw, s_ref, it_ref, plans, reps: int,
+                rounds: int = 3) -> dict:
+    """Device milliseconds of the cubic kernel on these inputs in each of
+    ``plans`` ((cluster size, mode) pairs), from the profiler: ``rounds``
+    readings a plan, the plans taken in turn each round, each reading the
+    mean of ``reps`` calls.  Each plan's answer is held to ``s_ref`` and
+    ``it_ref`` (the kernel's in the plan its rules pick) by
+    :func:`cubic_close`.  The plans go to the kernel's C entry point, which
+    takes the layout :func:`cubic_plan` gives the wrapper."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.cubic_step import MODES
+
+    m, d = g.shape
+    s = torch.empty_like(g)
+    iters = torch.empty(m, dtype=torch.int32, device=g.device)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launcher(cluster, mode):
+        scratch = (torch.empty((m, 2, d), device=g.device)
+                   if mode == "streamed_global_s" else None)
+
+        def run():
+            _build.launch("cubic_solve", g.data_ptr(), H.data_ptr(),
+                          s0.data_ptr(), lr.data_ptr(), s.data_ptr(),
+                          iters.data_ptr(),
+                          None if scratch is None else scratch.data_ptr(),
+                          m, d, 0.5 * kw["M"] * kw["gamma"] ** 2,
+                          kw["gamma"], kw["tol"], kw["max_iters"], cluster,
+                          MODES.index(mode), stream)
+        return run
+
+    runs = {f"{mode} C={c}": launcher(c, mode) for c, mode in plans}
+    out = {name: [] for name in runs}
+    for _ in range(rounds):
+        for name, run in runs.items():
+            out[name].append(kernel_device_ms(run, reps,
+                                              "cubic_solve_kernel"))
+            cubic_close(s, iters, s_ref, it_ref, lr, kw["tol"],
+                        ("cubic plan", d, name))
+    return out
+
+
 def check_kernels(exp):
     """Each kernel against its plain version on the card; returns the
     record of each (without launches and times)."""
     import torch
 
     from repro_torch.kernels import (
+        cubic_plan,
         cubic_solve,
         cubic_solve_plain,
         topk_compress,
@@ -292,20 +513,18 @@ def check_kernels(exp):
     s0 = torch.zeros_like(g)
     kw = dict(M=cfg.M, gamma=cfg.gamma, tol=cfg.solver_tol,
               max_iters=cfg.solver_iters)
-    s, iters = cubic_solve(g, H, s0, lr, **kw)
-    torch.cuda.synchronize()
-    ps, piters = cubic_solve_plain(g, H, s0, lr, **kw)
-    check(s.shape == g.shape and bool(torch.isfinite(s).all()),
-          "finite solve of the expected shape")
-    cubic_err = float((s - ps).abs().max())
+    cubic_err, s, iters, piters = hold_cubic(g, H, s0, lr, "w8a", **kw)
+    plan = cubic_plan(*g.shape)
+    # H (360 KB a worker) stays in the shared memory of a cluster of CTAs
+    check(plan.mode == "resident" and plan.cluster > 1, plan)
     log(f"cubic_solve vs plain: max |Δs| = {cubic_err:.3e} "
         f"(atol {CUBIC_ATOL}), iterations {iters.tolist()} vs "
-        f"{piters.tolist()}")
-    check(cubic_err <= CUBIC_ATOL, cubic_err)
+        f"{piters.tolist()}; cluster {plan.cluster} CTAs a worker, H "
+        f"{plan.mode}, {plan.smem_bytes} B of shared memory a CTA")
     # one iteration from a non-zero iterate: cubic_step's contract
-    s1, _ = cubic_solve(g, H, ps, lr, M=cfg.M, gamma=cfg.gamma, tol=-1.0,
+    s1, _ = cubic_solve(g, H, s, lr, M=cfg.M, gamma=cfg.gamma, tol=-1.0,
                         max_iters=1)
-    p1, _ = cubic_solve_plain(g, H, ps, lr, M=cfg.M, gamma=cfg.gamma,
+    p1, _ = cubic_solve_plain(g, H, s, lr, M=cfg.M, gamma=cfg.gamma,
                               tol=-1.0, max_iters=1)
     step_err = float((s1 - p1).abs().max())
     check(step_err <= 1e-6, step_err)
@@ -326,7 +545,7 @@ def check_kernels(exp):
             topk_err = max(topk_err, float((v - pv).abs().max()))
     log(f"topk_compress equals its plain version exactly (w8a updates, "
         f"tie-heavy, zeros; k in 1, {k}, d-1)")
-    return {"g": g, "H": H, "lr": lr, "cfg": cfg, "s": s,
+    return {"g": g, "H": H, "lr": lr, "cfg": cfg, "s": s, "plan": plan,
             "cubic_err": cubic_err, "topk_err": topk_err, "k": k}
 
 
@@ -455,7 +674,7 @@ def check_gisette_kernels():
     their plain versions on the card: the cubic solve on the first round's
     g and H (atol :data:`CUBIC_ATOL`); the sharded top-k bit for bit over
     :data:`SHARDED_TOPK_SHAPES` (the solve's (20, 5000) output, normal rows
-    and rows rounded to halves, ±0 among them); the gridded center bit for
+    and rows rounded to halves, ±0 among them); the sparse center bit for
     bit over :data:`SPARSE_AGG_SHAPES` (the solve's top-k payloads, with the
     norm_trim keep as 0/1 weights and without).  Returns the inputs and
     errors for the timings."""
@@ -464,8 +683,9 @@ def check_gisette_kernels():
     from repro_torch.api import ExperimentSpec
     from repro_torch.core.aggregation import norm_trim_keep
     from repro_torch.kernels import (
-        aggregate_sparse_gridded,
+        aggregate_sparse,
         aggregate_sparse_plain,
+        cubic_plan,
         cubic_solve,
         cubic_solve_plain,
         topk_compress_plain,
@@ -481,22 +701,33 @@ def check_gisette_kernels():
     s0 = torch.zeros_like(g)
     kw = dict(M=cfg.M, gamma=cfg.gamma, tol=cfg.solver_tol,
               max_iters=cfg.solver_iters)
-    s, iters = cubic_solve(g, H, s0, lr, **kw)
-    torch.cuda.synchronize()
-    ps, piters = cubic_solve_plain(g, H, s0, lr, **kw)
-    cubic_err = float((s - ps).abs().max())
-    check(s.shape == (20, GISETTE_D) and bool(torch.isfinite(s).all()),
-          "finite d = 5000 solve")
-    check(cubic_err <= CUBIC_ATOL, ("cubic at d = 5000", cubic_err))
+    cubic_err, s, iters, piters = hold_cubic(g, H, s0, lr, "d = 5000", **kw)
+    plan = cubic_plan(*g.shape)
+    # H (100 MB a worker) streams; a worker's rows spread over a cluster
+    check(plan.mode == "streamed" and plan.cluster > 1, plan)
     n_iters = int(iters.sum())
     cubic_ms = cuda_ms(lambda: cubic_solve(g, H, s0, lr, **kw), reps=2,
                        warmup=1)
     cubic_plain_ms = cuda_ms(lambda: cubic_solve_plain(g, H, s0, lr, **kw),
                              reps=1, warmup=0)
+    cubic_dev = kernel_device_ms(lambda: cubic_solve(g, H, s0, lr, **kw), 2,
+                                 "cubic_solve_kernel")
+    m, d = g.shape
+    cubic_bound, cubic_by = bound_ms(4 * (m * d * d + 4 * m * d + 2 * m),
+                                     n_iters * (2 * d * d + 8 * d))
+    # the design's own floor: every iteration streams its worker's H
+    stream_bytes = 4 * n_iters * d * d
+    stream_ms = stream_bytes / PEAK_BYTES_PER_S * 1e3
+    sweep = cubic_sweep(g, H, s0, lr, kw, s, iters, CUBIC_SWEEP_GISETTE, 1)
+    log(f"cubic_solve at d = 5000, device ms by plan: {json.dumps(sweep)}")
     log(f"cubic_solve at d = 5000 vs plain: max |Δs| = {cubic_err:.3e}, "
-        f"iterations {iters.tolist()} vs {piters.tolist()}; {cubic_ms:.3f} "
-        f"ms a call, plain {cubic_plain_ms:.3f} ms")
-    del g, H, lr, s0, ps
+        f"iterations {iters.tolist()} vs {piters.tolist()}; cluster "
+        f"{plan.cluster} CTAs a worker ({plan.max_active_clusters} such "
+        f"clusters fit at once), H {plan.mode}; {cubic_ms:.3f} ms a call, "
+        f"{cubic_dev} ms on the device, plain {cubic_plain_ms:.3f} ms; H "
+        f"stream {stream_bytes} B = {stream_ms:.3f} ms at 3.35 TB/s "
+        f"({stream_bytes / (cubic_dev or cubic_ms) / 1e9:.3f} TB/s achieved)")
+    del g, H, lr, s0
     torch.cuda.empty_cache()
 
     k = exp.algo.uplink.compressor.k
@@ -535,19 +766,26 @@ def check_gisette_kernels():
         w01 = (keep if m == keep.shape[0] else
                (torch.rand(m, generator=gen, device="cuda") < 0.5).float())
         for w in (None, w01):
-            out = aggregate_sparse_gridded(pv, pi, d, w)
+            out = aggregate_sparse(pv, pi, d, w)
             torch.cuda.synchronize()
             want = aggregate_sparse_plain(pv, pi, d, w)
             check(torch.equal(bits(out), bits(want)),
                   ("sparse_agg vs plain", m, kk, d, dup, w is None))
             agg_err = max(agg_err, float((out - want).abs().max()))
-    log(f"aggregate_sparse_gridded equals its plain version bit for bit over "
-        f"{SPARSE_AGG_SHAPES} (the d = 5000 payloads; 0/1 weights and none)")
+    log(f"aggregate_sparse (the kernel at every d) equals its plain version "
+        f"bit for bit over {SPARSE_AGG_SHAPES} (the d = 5000 payloads; 0/1 "
+        f"weights and none)")
     return {"s": s, "k": k, "vals": vals, "idx": idx, "keep": keep,
             "topk_err": topk_err, "agg_err": agg_err,
             "cubic": {"shape": [20, GISETTE_D], "iterations": n_iters,
                       "max_abs_err": cubic_err, "ms": cubic_ms,
-                      "plain_ms": cubic_plain_ms}}
+                      "device_ms": cubic_dev, "plain_ms": cubic_plain_ms,
+                      "bound_ms": cubic_bound, "bound_by": cubic_by,
+                      "stream_bytes": stream_bytes,
+                      "stream_ms_at_hbm": stream_ms,
+                      "cluster": plan.cluster, "mode": plan.mode,
+                      "max_active_clusters": plan.max_active_clusters,
+                      "device_ms_by_plan": sweep}}
 
 
 def drive(spec_kw: dict, rounds: int, *, sparse: bool,
@@ -620,41 +858,114 @@ def check_small_against_cpu():
             f"{hc['loss']}")
 
 
-def check_small_large_d_against_cpu():
-    """:data:`SMALL_LARGE_D` (d = 4352: the sharded top-k and the gridded
-    center) on the card and on the CPU over the same data, 2 rounds: equal
-    ledger integers, equal keep masks each round, loss within rtol 1e-5."""
+def check_sparse_spec_against_cpu(spec_kw: dict, rounds: int, label: str,
+                                  loss_rtol: float) -> None:
+    """A sparse-center spec on the card and on the CPU over the same data,
+    ``rounds`` rounds: equal ledger integers, equal keep masks each round,
+    loss within ``loss_rtol``."""
     import numpy as np
     import torch
 
     from repro_torch import interop
     from repro_torch.api import ExperimentSpec
 
-    spec = ExperimentSpec(**SMALL_LARGE_D)
+    spec = ExperimentSpec(**spec_kw)
     cpu = spec.build(device="cpu")
     card = spec.build(problem=interop.problem_from_reference(
         cpu.problem, device="cuda"))
-    wg, hg = card.run(2)
-    wc, hc = cpu.run(2)
-    np.testing.assert_allclose(hg["loss"], hc["loss"], rtol=1e-5)
+    wg, hg = card.run(rounds)
+    wc, hc = cpu.run(rounds)
+    np.testing.assert_allclose(hg["loss"], hc["loss"], rtol=loss_rtol)
     for key in ("uplink_bits", "downlink_bits", "bits_cumulative"):
-        check(hg[key] == hc[key], ("d = 4352", key))
+        check(hg[key] == hc[key], (label, key))
 
     def keeps(exp):
         algo, p = exp.algo, exp.problem
-        check(algo._use_sparse_center, "d = 4352 sparse center")
+        check(algo._use_sparse_center, (label, "sparse center"))
         w, v, st = p.w0, torch.zeros_like(p.w0), algo.init_comm_state()
         out = []
-        for _ in range(2):
+        for _ in range(rounds):
             w, v, st, info = algo.step(w, p.X_workers, p.y_workers, None, v,
                                        st)
             out.append(info["keep"].cpu())
         return out
 
     for kg, kc in zip(keeps(card), keeps(cpu)):
-        check(torch.equal(kg, kc), ("d = 4352 keep masks", kg, kc))
-    log(f"small spec at d = 4352 (sharded top-k, gridded center): card and "
-        f"CPU agree, loss {hg['loss']} vs {hc['loss']}, equal keep masks")
+        check(torch.equal(kg, kc), (label, "keep masks", kg, kc))
+    log(f"{label}: card and CPU agree over {rounds} rounds, loss "
+        f"{hg['loss']} vs {hc['loss']}, equal ledger integers and keep "
+        f"masks")
+
+
+def w8a_sparse_payloads():
+    """One round's payloads of :data:`W8A_SPARSE` on the card: the first
+    round's solve through top-k, (20, 30) values and indices, and the
+    norm_trim keep as weights."""
+    import torch
+
+    from repro_torch.api import ExperimentSpec
+    from repro_torch.core.aggregation import norm_trim_keep
+    from repro_torch.kernels import cubic_solve, topk_compress
+
+    exp = ExperimentSpec(**W8A_SPARSE).build()
+    exp.algo._ensure_channels(exp.problem.dim, exp.problem.m_workers)
+    g, H, lr, cfg = first_round_solver_inputs(exp)
+    s, _ = cubic_solve(g, H, None, lr, M=cfg.M, gamma=cfg.gamma,
+                       tol=cfg.solver_tol, max_iters=cfg.solver_iters)
+    vals, idx = topk_compress(s, exp.algo.uplink.compressor.k)
+    keep, _ = norm_trim_keep(torch.linalg.vector_norm(vals, dim=1),
+                             exp.algo.aggregator.beta)
+    return vals, idx, keep, exp.problem.dim
+
+
+def check_f1(vals, idx, keep, d: int) -> dict:
+    """F1, the sparse center's determinism at w8a's width, over one round's
+    payloads: ``index_add_`` on the card (:data:`F1_INDEX_ADD_RUNS` runs)
+    against itself and against the CPU's plain version, bit for bit, for the
+    record; then ``aggregate_sparse`` on the card twice and on the CPU,
+    which must agree bit for bit, one kernel launch a call; then
+    :data:`W8A_SPARSE` on the card against the CPU for 3 rounds."""
+    import torch
+
+    from repro_torch.kernels import (
+        LAUNCHES,
+        aggregate_sparse,
+        aggregate_sparse_plain,
+    )
+
+    def bits(t):
+        return t.view(torch.int32).cpu()
+
+    cpu = aggregate_sparse_plain(vals.cpu(), idx.cpu(), d, keep.cpu())
+    flat_i = idx.reshape(-1).long()
+    flat_v = (vals * keep[:, None]).reshape(-1)
+    runs = [bits(torch.zeros(d, device="cuda").index_add_(0, flat_i, flat_v))
+            for _ in range(F1_INDEX_ADD_RUNS)]
+    distinct = len({tuple(r.tolist()) for r in runs})
+    off_cpu = [int((r != bits(cpu)).sum()) for r in runs]
+    shared = int((torch.bincount(flat_i, minlength=d) > 1).sum())
+    found = (f"index_add_ on the card, {F1_INDEX_ADD_RUNS} runs over the "
+             f"same payloads ({shared} of {d} coordinates summed from more "
+             f"than one entry): {distinct} distinct results; coordinates "
+             f"whose bits differ from the CPU's stream-order sum, by run: "
+             f"{off_cpu}")
+
+    before = LAUNCHES["sparse_agg"]
+    card = [aggregate_sparse(vals, idx, d, keep) for _ in range(2)]
+    check(LAUNCHES["sparse_agg"] == before + 2, "one sparse_agg launch a call")
+    on_cpu = aggregate_sparse(vals.cpu(), idx.cpu(), d, keep.cpu())
+    for out in (*card, on_cpu):
+        check(torch.equal(bits(out), bits(cpu)),
+              "the sparse center's bits, card and CPU")
+    log(f"F1 at w8a's width ({tuple(vals.shape)} payloads over d = {d}, "
+        f"norm_trim keep as weights): {found}. aggregate_sparse: two card "
+        f"runs (the kernel) and the CPU (index_add_ in stream order) equal "
+        f"bit for bit")
+    check_sparse_spec_against_cpu(W8A_SPARSE, 3, "F1, w8a sparse center",
+                                  1e-4)
+    return {"index_add_runs": F1_INDEX_ADD_RUNS,
+            "index_add_distinct": distinct, "index_add_off_cpu": off_cpu,
+            "shared_coordinates": shared}
 
 
 def profiled(fn):
@@ -783,6 +1094,8 @@ def time_kernels(inp: dict, launches: dict) -> list:
     topk_bound, topk_by = bound_ms(4 * m * d + 8 * m * k, 32 * m * d)
     cubic_dev = kernel_device_ms(lambda: cubic_solve(g, H, s0, lr, **kw), 20,
                                  "cubic_solve_kernel")
+    cubic_by_plan = cubic_sweep(g, H, s0, lr, kw, s, iters, CUBIC_SWEEP_W8A,
+                                20)
     topk_dev = kernel_device_ms(lambda: topk_compress(s, k), 200,
                                 "topk_compress_kernel")
     log(f"device time per launch (profiler): cubic_solve {cubic_dev} ms, "
@@ -843,7 +1156,8 @@ def time_kernels(inp: dict, launches: dict) -> list:
          "plain_ms": cubic_plain_ms, "bound_ms": cubic_bound,
          "bound_by": cubic_by, "library_ms": None,
          "device_ms": cubic_dev, "iterations": n_iters, "shape": [m, d],
-         "stream_bytes": stream_bytes,
+         "cluster": inp["plan"].cluster, "mode": inp["plan"].mode,
+         "device_ms_by_plan": cubic_by_plan, "stream_bytes": stream_bytes,
          "stream_ms_at_hbm": stream_ms_at_hbm},
         {"name": "topk_compress", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/topk_compress.cu",
@@ -879,18 +1193,47 @@ def time_kernels(inp: dict, launches: dict) -> list:
     ]
 
 
-def time_gisette_kernels(inp: dict, launches: dict) -> list:
-    """The records of the sharded top-k and the gridded center at drive A's
-    shapes: the (20, 5000) updates at k = 500, and their (20, 500)
-    payloads summed with the norm_trim keep as weights."""
+def time_sparse_center(vals, idx, keep, d: int, reps: int = 200) -> dict:
+    """The sparse center's kernel over one round's payloads, summed with
+    the norm_trim keep as weights: its call (events), its device time
+    (profiler), the plain version's call, and ``index_add_``'s call and
+    device time (the fill of its zeros and the scatter) on the same
+    weighted values, with the bound."""
     import torch
 
-    from repro_torch.kernels import (
-        aggregate_sparse_gridded,
-        aggregate_sparse_plain,
-        topk_compress_plain,
-        topk_compress_sharded,
-    )
+    from repro_torch.kernels import aggregate_sparse, aggregate_sparse_plain
+
+    m, k = vals.shape
+    lib_idx = idx.reshape(-1).long()
+    lib_vals = (vals * keep[:, None]).reshape(-1)
+
+    def lib():
+        return torch.zeros(d, device=vals.device).index_add_(0, lib_idx,
+                                                             lib_vals)
+
+    dev = device_ms_by_name(lambda: aggregate_sparse(vals, idx, d, keep),
+                            reps, ("sparse_agg_kernel",))
+    # the payloads and weights read once, the aggregate written once; a
+    # multiply and an add per payload entry
+    bound, by = bound_ms(8 * m * k + 4 * m + 4 * d, 2 * m * k)
+    return {"shape": [m, k], "d": d,
+            "ms": cuda_ms(lambda: aggregate_sparse(vals, idx, d, keep), reps),
+            "device_ms": dev["sparse_agg_kernel"], "device_ms_call": dev["all"],
+            "plain_ms": cuda_ms(lambda: aggregate_sparse_plain(vals, idx, d,
+                                                               keep), 50),
+            "library_ms": cuda_ms(lib, reps),
+            "library_device_ms": device_ms_by_name(lib, reps, ())["all"],
+            "bound_ms": bound, "bound_by": by}
+
+
+def time_gisette_kernels(inp: dict, launches: dict, w8a_payload) -> list:
+    """The records of the sharded top-k and the sparse center at drive A's
+    shapes: the (20, 5000) updates at k = 500, and their (20, 500) payloads
+    summed with the norm_trim keep as weights; the sparse center also at
+    w8a's (20, 30) payloads over d = 300."""
+    import torch
+
+    from repro_torch.kernels import topk_compress_plain, topk_compress_sharded
 
     s, k, vals, idx, keep = (inp[n] for n in ("s", "k", "vals", "idx",
                                                 "keep"))
@@ -905,26 +1248,13 @@ def time_gisette_kernels(inp: dict, launches: dict) -> list:
     # x read once and the payload written once; per coordinate three
     # histogram updates and the sure/tie compares
     topk_bound, topk_by = bound_ms(4 * m * d + 8 * m * k, 5 * m * d)
-    agg_ms = cuda_ms(lambda: aggregate_sparse_gridded(vals, idx, d, keep),
-                     reps=200)
-    agg_plain_ms = cuda_ms(lambda: aggregate_sparse_plain(vals, idx, d, keep),
-                           reps=50)
-    lib_idx = idx.reshape(-1).long()
-    lib_vals = (vals * keep[:, None]).reshape(-1)
-    agg_lib_ms = cuda_ms(lambda: torch.zeros(d, device=s.device).index_add_(
-        0, lib_idx, lib_vals), reps=200)
-    agg_dev = device_ms_by_name(
-        lambda: aggregate_sparse_gridded(vals, idx, d, keep), 200,
-        ("sparse_agg_kernel",))
-    # the payloads and weights read once, the aggregate written once; a
-    # multiply and an add per payload entry
-    agg_bound, agg_by = bound_ms(8 * m * k + 4 * m + 4 * d, 2 * m * k)
+    agg = time_sparse_center(vals, idx, keep, d)
+    agg_w8a = time_sparse_center(*w8a_payload)
     log(f"topk_compress_sharded at ({m}, {d}), k = {k}: {topk_ms:.4f} ms a "
         f"call, device by pass {topk_dev}, plain {topk_plain_ms:.4f} ms, "
         f"torch.topk {topk_lib_ms:.4f} ms, bound {topk_bound:.7f} ms; "
-        f"aggregate_sparse_gridded of ({m}, {k}) over d = {d}: {agg_ms:.4f} "
-        f"ms a call, device {agg_dev}, plain {agg_plain_ms:.4f} ms, "
-        f"index_add_ {agg_lib_ms:.4f} ms, bound {agg_bound:.7f} ms")
+        f"the sparse center (ms; drive A, then w8a): {json.dumps(agg)}; "
+        f"{json.dumps(agg_w8a)}")
     return [
         {"name": "topk_sharded", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/topk_sharded.cu",
@@ -942,11 +1272,7 @@ def time_gisette_kernels(inp: dict, launches: dict) -> list:
          "source": "src/repro_torch/kernels/csrc/sparse_agg.cu",
          "replaces": "src/repro/kernels/robust_agg.py:245",
          "launches": launches["sparse_agg"],
-         "max_abs_err": inp["agg_err"], "ms": agg_ms,
-         "plain_ms": agg_plain_ms, "bound_ms": agg_bound,
-         "bound_by": agg_by, "library_ms": agg_lib_ms,
-         "device_ms": agg_dev["sparse_agg_kernel"],
-         "device_ms_call": agg_dev["all"], "shape": [m, k], "d": d},
+         "max_abs_err": inp["agg_err"], **agg, "at_w8a": agg_w8a},
     ]
 
 
@@ -1476,7 +1802,11 @@ def main() -> int:
 
     launches, _ = drive(W8A, 5, sparse=False)
     sparse_launches, _ = drive(W8A_SPARSE, 3, sparse=True,
-                               label="sparse-center")
+                               label="sparse-center",
+                               kernels=("cubic_solve", "topk_compress",
+                                        "sparse_agg"))
+    w8a_payload = w8a_sparse_payloads()
+    f1 = check_f1(*w8a_payload)
     rule_launches = {}
     for rule, kernel in W8A_RULES.items():
         rule_launches[rule], _ = drive(
@@ -1484,7 +1814,7 @@ def main() -> int:
             kernels=("cubic_solve", "topk_compress", kernel),
             label=rule.partition(":")[0])
 
-    # gisette's width: the sharded top-k and the gridded center
+    # gisette's width: the sharded top-k and the sparse center
     ginp = check_gisette_kernels()
     check((gisette_uplink_bits(500), GISETTE_DOWNLINK_BITS)
           == (450000, 160000), "gisette ledger rule")
@@ -1498,8 +1828,12 @@ def main() -> int:
         bits=lambda k: (gisette_uplink_bits(k), GISETTE_DOWNLINK_BITS))
     check(len(set(b_hist["k_trajectory"])) > 1,
           ("adaptive k must move", b_hist["k_trajectory"]))
+    widths = check_cubic_widths()
+    wide = check_cubic_wide()
     check_small_against_cpu()
-    check_small_large_d_against_cpu()
+    check_sparse_spec_against_cpu(
+        SMALL_LARGE_D, 2, "small spec at d = 4352 (sharded top-k, sparse "
+        "center)", 1e-5)
 
     # slice 4: the model zoo's dense decoder, gemma3-27b at full width
     model_inp = check_model_kernels()
@@ -1519,8 +1853,10 @@ def main() -> int:
     first = {name: next((n[name] for n in runs.values() if n[name]), 0)
              for name in launches}
     kernels = time_kernels(inputs, first)
-    kernels[0]["at_gisette"] = ginp["cubic"]
-    kernels += time_gisette_kernels(ginp, first)
+    kernels[0].update(at_gisette=ginp["cubic"], at_widths=widths,
+                      at_d10000=wide)
+    kernels += time_gisette_kernels(ginp, first, w8a_payload)
+    kernels[-1]["f1"] = f1
     kernels += time_model_kernels(model_inp, first)
     round_breakdown(DRIVE_A, label="gisette (d = 5000) sparse-center")
     round_breakdown()

@@ -1,8 +1,9 @@
 """Hand-written Hopper kernels of the port, each with its plain PyTorch
 version beside it in the same module:
 
-* :mod:`.cubic_step` -- the batched Algorithm-2 solve (``csrc/cubic_solve.cu``),
-  replacing the reference's Pallas ``cubic_step``;
+* :mod:`.cubic_step` -- the batched Algorithm-2 solve, a thread block
+  cluster a worker at any d (``csrc/cubic_solve.cu``), replacing the
+  reference's Pallas ``cubic_step``;
 * :mod:`.topk_compress` -- the batched top-|x| wire payload: one CTA per
   row up to d = 1408 (``csrc/topk_compress.cu``) and a grid of row × block
   CTAs beyond (``csrc/topk_sharded.cu``), replacing the reference's Pallas
@@ -10,10 +11,10 @@ version beside it in the same module:
 * :mod:`.robust_agg` -- krum's scores (``csrc/krum_scores.cu``) and the
   per-coordinate worker sort behind the trimmed mean and the median
   (``csrc/sort_workers.cu``), replacing the reference's Pallas
-  ``krum_scores_fused`` and ``sort_workers_fused``; and the sparse center:
-  its scatter branch up to d = 4096 (plain PyTorch, as in the reference)
-  and the gridded kernel beyond (``csrc/sparse_agg.cu``), replacing the
-  reference's Pallas ``aggregate_sparse_gridded``;
+  ``krum_scores_fused`` and ``sort_workers_fused``; and the sparse center
+  (``csrc/sparse_agg.cu``, one launch at every d on the card, bit for bit
+  the reference's sequential oracle), replacing the reference's Pallas
+  ``aggregate_sparse_gridded`` and, on the card, its scatter branch;
 * :mod:`.rmsnorm` -- RMSNorm over the last axis (``csrc/rmsnorm.cu``),
   replacing the reference's Pallas ``rmsnorm``;
 * :mod:`.flash_attention` -- causal and sliding-window attention with an
@@ -26,6 +27,8 @@ version on a CPU tensor.  :data:`LAUNCHES` counts the kernel launches.
 """
 from ._build import LAUNCHES, build_all, reset_launches
 from .cubic_step import (
+    CubicPlan,
+    cubic_plan,
     cubic_solve,
     cubic_solve_fused,
     cubic_solve_plain,
@@ -58,6 +61,7 @@ from .topk_compress import (
 )
 
 __all__ = [
+    "CubicPlan",
     "LAUNCHES",
     "SINGLE_TILE_MAX_D",
     "SPARSE_SCATTER_MAX_D",
@@ -69,6 +73,7 @@ __all__ = [
     "attention_plain",
     "build_all",
     "coordinate_median_fused",
+    "cubic_plan",
     "cubic_solve",
     "cubic_solve_fused",
     "cubic_solve_plain",

@@ -12,6 +12,8 @@ Nothing here runs at import: the CPU tests import every module, and
 
 :data:`LAUNCHES` counts the launches of each kernel: :func:`launch` adds one
 after each successful launch, and only the kernel wrappers call it.
+:func:`query` calls a source's other C functions, which launch nothing (the
+cubic solve's launch plan), and counts nothing.
 """
 from __future__ import annotations
 
@@ -35,7 +37,8 @@ _F = ctypes.c_float
 #: returns its cudaGetLastError() as an int.
 ENTRY_POINTS = {
     "cubic_solve": ("cubic_solve_launch",
-                    [_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _I, _P]),
+                    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _I, _I,
+                     _I, _P]),
     "topk_compress": ("topk_compress_launch", [_P, _P, _P, _I, _I, _I, _P]),
     "krum_scores": ("krum_scores_launch", [_P, _P, _P, _P, _I, _I, _I, _P]),
     "sort_workers": ("sort_workers_launch", [_P, _P, _I, _I, _P]),
@@ -45,6 +48,12 @@ ENTRY_POINTS = {
     "rmsnorm": ("rmsnorm_launch", [_P, _P, _P, _I, _I, _F, _I, _I, _I, _P]),
     "flash_attention": ("flash_attention_launch",
                         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+}
+
+#: C functions of a source that launch nothing: name -> (symbol,
+#: argtypes).  Each returns a cudaError_t as an int.
+QUERIES = {
+    "cubic_solve_plan": ("cubic_solve", [_I, _I, _P]),
 }
 
 _lock = threading.Lock()
@@ -128,6 +137,10 @@ def library(name: str) -> ctypes.CDLL:
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
                 _libs[n] = cdll
+            for symbol, (n, argtypes) in QUERIES.items():
+                fn = getattr(_libs[n], symbol)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
             lib = _libs[name]
         return lib
 
@@ -140,3 +153,12 @@ def launch(name: str, *args) -> None:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError {err}")
     LAUNCHES[name] += 1
+
+
+def query(symbol: str, *args) -> None:
+    """Call the C function ``symbol`` of :data:`QUERIES` (it launches
+    nothing, and no count moves) and raise on a CUDA error."""
+    name, _ = QUERIES[symbol]
+    err = getattr(library(name), symbol)(*args)
+    if err != 0:
+        raise RuntimeError(f"{symbol} failed: cudaError {err}")

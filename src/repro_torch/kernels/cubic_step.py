@@ -7,20 +7,71 @@ gradient descent:
                                           s ← s − lr_w·G ;  recompute G
 
 :func:`cubic_solve` runs the whole loop for all workers. On a CUDA tensor it
-launches ``csrc/cubic_solve.cu`` once (one CTA per worker, each stopping on
-its own condition), or raises; on a CPU tensor it runs
-:func:`cubic_solve_plain`.  :func:`cubic_step` (one iteration, the
-reference's ``kernels/cubic_step.py::cubic_step``) and
-:func:`cubic_solve_fused` (a fixed number of iterations from s = 0, the
-reference's ``cubic_solve_fused``) are the same kernel with ``tol = -1``.
+launches ``csrc/cubic_solve.cu`` once, or raises; on a CPU tensor it runs
+:func:`cubic_solve_plain`.  The kernel gives each worker a thread block
+cluster of C CTAs, each owning d/C rows of H, and serves any d whose H the
+card holds.  :func:`cubic_plan` says how a launch is laid out
+(:class:`CubicPlan`):
+
+* ``"resident"`` -- each CTA's rows of H fit its shared memory and stay
+  there for the whole solve (d up to about 940; C the smallest cluster that
+  holds them and leaves each CTA at most 64 rows: w8a's d = 300 takes
+  C = 5).  An iteration is then bound by latency: the warps' passes, the
+  stores to the other CTAs and one cluster barrier.
+* ``"streamed"`` -- H streams from device memory every iteration, and the
+  bytes bound it: Σ_w iters_w · d² · 4 B at 3.35 TB/s (about 142 ms at
+  gisette's d = 5000, m = 20).  C is the largest cluster size for which all
+  m clusters are resident at once, so the CTAs cover the card.
+* ``"streamed_global_s"`` -- past d = 28544 the iterate's two buffers leave
+  shared memory for an (m, 2, d) scratch in device memory.
+
+:func:`cubic_step` (one iteration, the reference's
+``kernels/cubic_step.py::cubic_step``) and :func:`cubic_solve_fused` (a fixed
+number of iterations from s = 0, the reference's ``cubic_solve_fused``) are
+the same kernel with ``tol = -1``.
 """
 from __future__ import annotations
+
+import ctypes
+import functools
+from dataclasses import dataclass
 
 import torch
 
 from . import _build
 
-MAX_D = 8192  # 3·d floats of dynamic shared memory per CTA (96 KB)
+#: the kernel's launch modes, by the code its C entry points use
+MODES = ("resident", "streamed", "streamed_global_s")
+
+
+@dataclass(frozen=True)
+class CubicPlan:
+    """How :func:`cubic_solve` lays out a launch on the card: ``cluster``
+    CTAs a worker, the ``mode`` (one of :data:`MODES`), the shared memory of
+    a CTA and how many such clusters the card holds at once."""
+    cluster: int
+    mode: str
+    smem_bytes: int
+    max_active_clusters: int
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(device_index: int, m: int, d: int):
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(device_index):
+        _build.query("cubic_solve_plan", m, d, out)
+    return CubicPlan(out[0], MODES[out[1]], out[2], out[3])
+
+
+def cubic_plan(m: int, d: int, *, device=None) -> CubicPlan:
+    """The launch plan the kernel's rules (``csrc/cubic_solve.cu``) pick for
+    m workers at width d on a card (the current one when ``device`` is
+    None); cached per device and shape."""
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"cubic_plan lays out a launch on a card, got {dev}")
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    return _plan(index, int(m), int(d))
 
 
 def cubic_solve_plain(g, H, s0, lr, *, M, gamma, tol, max_iters):
@@ -81,17 +132,23 @@ def cubic_solve(g, H, s0=None, lr=None, *, M=10.0, gamma=1.0, tol=1e-6,
     if g.device.type != "cuda":
         raise ValueError(f"cubic_solve runs on cuda or cpu, got {g.device}")
     m, d = g.shape
-    if d > MAX_D:
-        raise ValueError(f"cubic_solve kernel serves d <= {MAX_D}, got {d}")
+    if m == 0 or d == 0:
+        return s0.clone(), torch.zeros((m,), dtype=torch.int32,
+                                       device=g.device)
     g, H, s0, lr = (t.contiguous() for t in (g, H, s0, lr))
     s = torch.empty_like(g)
     iters = torch.empty((m,), dtype=torch.int32, device=g.device)
+    plan = cubic_plan(m, d, device=g.device)
+    scratch = (torch.empty((m, 2, d), dtype=torch.float32, device=g.device)
+               if plan.mode == "streamed_global_s" else None)
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream().cuda_stream
         _build.launch("cubic_solve", g.data_ptr(), H.data_ptr(),
                       s0.data_ptr(), lr.data_ptr(), s.data_ptr(),
-                      iters.data_ptr(), m, d, 0.5 * M * gamma**2, gamma,
-                      tol, max_iters, stream)
+                      iters.data_ptr(),
+                      None if scratch is None else scratch.data_ptr(), m, d,
+                      0.5 * M * gamma**2, gamma, tol, max_iters,
+                      plan.cluster, MODES.index(plan.mode), stream)
     return s, iters
 
 

@@ -1,15 +1,20 @@
 """The center's aggregation kernels.
 
 * Sparse-domain aggregation (:func:`aggregate_sparse`): Σᵢ wᵢ·scatter(valsᵢ,
-  idxᵢ) over m top-k wire payloads, never building an (m, d) array.  As the
-  reference (``kernels/robust_agg.py::aggregate_sparse``) does, it takes a
-  plain scatter-add (here ``index_add_``) up to
-  :data:`SPARSE_SCATTER_MAX_D` and the gridded kernel beyond
-  (:func:`agg_kernel_plan`): :func:`aggregate_sparse_gridded` on
-  ``csrc/sparse_agg.cu``, replacing the reference's Pallas
-  ``aggregate_sparse_gridded``, whose plain version
-  :func:`aggregate_sparse_plain` is the sequential contract of
-  ``kernels/ref.py::sparse_aggregate_ref``; both give its bits.
+  idxᵢ) over m top-k wire payloads, never building an (m, d) array, bit for
+  bit the sequential contract of ``kernels/ref.py::sparse_aggregate_ref``
+  (:func:`aggregate_sparse_plain`).  On a CUDA tensor it launches
+  ``csrc/sparse_agg.cu`` (:func:`aggregate_sparse_gridded`, replacing the
+  reference's Pallas ``aggregate_sparse_gridded``) at every d, in one
+  launch: CUDA's ``index_add_`` sums duplicate coordinates in no fixed
+  order, so the reference's scatter branch up to
+  :data:`SPARSE_SCATTER_MAX_D` would not repeat its bits from run to run.
+  The kernel moves few bytes, so latency bounds it: each CTA owns a range
+  of coordinates, loads the payload a chunk at a time and orders each
+  chunk through a shared-memory table of (row, coordinate), with no sort
+  and no order-dependent atomics.  On a CPU tensor it keeps the
+  reference's boundary (:func:`agg_kernel_plan`): ``index_add_``, which
+  sums in stream order there, up to it, and the plain version beyond.
 * Krum scores (:func:`krum_scores`, ``csrc/krum_scores.cu``), replacing the
   reference's Pallas ``krum_scores_fused``: only the (m,) scores leave the
   kernel, and :func:`krum_select_fused` takes their argmin in PyTorch.
@@ -36,9 +41,9 @@ _BIG = 1e30
 
 
 def agg_kernel_plan(m: int, d: int, *, k: int) -> str:
-    """Which path sums m payloads of width k into d coordinates:
-    ``"scatter"`` up to :data:`SPARSE_SCATTER_MAX_D`, ``"sparse_gridded"``
-    beyond (the reference's ``agg_kernel_plan`` boundary)."""
+    """The reference's ``agg_kernel_plan`` boundary: ``"scatter"`` up to
+    :data:`SPARSE_SCATTER_MAX_D`, ``"sparse_gridded"`` beyond.  It chooses
+    the path of a CPU tensor only; on the card every d takes the kernel."""
     if m < 1 or k < 0 or d < 1:
         raise ValueError(f"sparse aggregation needs m >= 1, k >= 0 and "
                          f"d >= 1, got m={m}, k={k}, d={d}")
@@ -94,24 +99,29 @@ def _check_payload(vals, idx, weights):
                          f"{vals.device}")
 
 
+def _aligned(t):
+    """``t`` contiguous and 16-byte aligned (the kernel's vector loads)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def aggregate_sparse_gridded(vals, idx, d: int, weights=None):
     """values (m, k) f32 + indices (m, k) int32 (+ optional weights (m,))
     → the (d,) f32 weighted sum, bit for bit the contract's: on a CUDA
-    tensor the kernel ``csrc/sparse_agg.cu`` (any d), after a stable sort of
-    each row by index; on a CPU tensor :func:`aggregate_sparse_plain`.
-    Indices must lie in [0, d): the kernel sums no entry outside it (the
-    plain version raises on one)."""
+    tensor one launch of ``csrc/sparse_agg.cu`` (any d, rows in any order);
+    on a CPU tensor :func:`aggregate_sparse_plain`.  Indices must lie in
+    [0, d): the kernel sums no entry outside it (the plain version raises on
+    one)."""
     _check_payload(vals, idx, weights)
     if vals.device.type == "cpu":
         return aggregate_sparse_plain(vals, idx, d, weights)
     m, k = vals.shape
-    sidx, perm = torch.sort(idx, dim=1, stable=True)
-    svals = torch.gather(vals, 1, perm)
+    vals, idx = _aligned(vals), _aligned(idx)
     w = None if weights is None else weights.to(torch.float32).contiguous()
     out = torch.empty((d,), dtype=torch.float32, device=vals.device)
     with torch.cuda.device(vals.device):
         stream = torch.cuda.current_stream().cuda_stream
-        _build.launch("sparse_agg", svals.data_ptr(), sidx.data_ptr(),
+        _build.launch("sparse_agg", vals.data_ptr(), idx.data_ptr(),
                       None if w is None else w.data_ptr(), out.data_ptr(),
                       m, k, d, stream)
     return out
@@ -119,11 +129,14 @@ def aggregate_sparse_gridded(vals, idx, d: int, weights=None):
 
 def aggregate_sparse(vals, idx, d: int, weights=None):
     """values (m, k) f32 + indices (m, k) int32 (+ optional weights (m,))
-    → the (d,) f32 weighted sum of the scattered payloads, by the path
-    :func:`agg_kernel_plan` picks: ``index_add_`` up to
-    :data:`SPARSE_SCATTER_MAX_D`, :func:`aggregate_sparse_gridded` beyond."""
+    → the (d,) f32 weighted sum of the scattered payloads, bit for bit
+    :func:`aggregate_sparse_plain`: on a CUDA tensor the kernel
+    (:func:`aggregate_sparse_gridded`) at every d; on a CPU tensor the path
+    :func:`agg_kernel_plan` picks, ``index_add_`` (stream order on the CPU)
+    up to :data:`SPARSE_SCATTER_MAX_D` and the plain version beyond."""
     m, k = vals.shape
-    if agg_kernel_plan(m, d, k=k) == "sparse_gridded":
+    plan = agg_kernel_plan(m, d, k=k)
+    if vals.device.type == "cuda" or plan == "sparse_gridded":
         return aggregate_sparse_gridded(vals, idx, d, weights)
     v = _weighted(vals, weights)
     out = torch.zeros((d,), dtype=torch.float32, device=vals.device)

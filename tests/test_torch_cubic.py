@@ -102,3 +102,28 @@ def test_solve_cubic_exact_matches_reference():
     gd = solve_cubic_gd(_t(g), _t(H), max_iters=4000)
     assert (cubic_model_value(out, _t(g), _t(H)).item()
             <= cubic_model_value(gd, _t(g), _t(H)).item() + 1e-5)
+
+
+def test_solve_past_the_old_width_bound_matches_reference():
+    """d = 8200, past the 8192 floats a CTA once held: the plain contract
+    that the card's kernel now serves there, against the reference's
+    Algorithm 2 on the same numpy inputs, 20 iterations from s = 0 with one
+    step size.  H is not symmetric (the contract takes any H).  Tolerance
+    rtol 1e-5, atol 1e-7: the two sum each 8200-term row in another order
+    (float32, about 1e-6 relative), and 20 iterations carry it on."""
+    d, iters = 8200, 20
+    rng = np.random.default_rng(8200)
+    H = rng.standard_normal((d, d), dtype=np.float32)
+    H *= np.float32(1.0 / np.sqrt(d))
+    g = (rng.standard_normal(d, dtype=np.float32)
+         * np.float32(1.0 / np.sqrt(d)))
+    lr = 1e-2
+    ref = np.asarray(jax_solve_cubic_gd(
+        jnp.asarray(g), jnp.asarray(H), M=10.0, gamma=1.0, lr=lr, tol=1e-6,
+        max_iters=iters))
+    s, it = cubic_solve(_t(g)[None], torch.from_numpy(H)[None], None,
+                        torch.full((1,), lr), M=10.0, gamma=1.0, tol=1e-6,
+                        max_iters=iters)
+    assert it.tolist() == [iters]
+    assert float(np.abs(ref).max()) > 1e-3      # the iterate moved
+    np.testing.assert_allclose(s[0].numpy(), ref, rtol=1e-5, atol=1e-7)

@@ -11,10 +11,12 @@ import torch
 
 from repro_torch.kernels import (
     LAUNCHES,
+    aggregate_sparse,
     aggregate_sparse_gridded,
     aggregate_sparse_plain,
     attention_bshd,
     attention_plain,
+    cubic_plan,
     cubic_solve,
     cubic_solve_plain,
     krum_scores,
@@ -52,19 +54,100 @@ def test_topk_kernel_equals_plain(cuda, d, k):
     assert LAUNCHES["topk_compress"] == before + 3
 
 
-def test_cubic_kernel_matches_plain(cuda):
-    m, d = 6, 123
-    gen = torch.Generator(device=cuda).manual_seed(0)
-    A = torch.randn(m, d, d, generator=gen, device=cuda)
-    H = (A + A.transpose(1, 2)) / (2 * d ** 0.5)
-    g = torch.randn(m, d, generator=gen, device=cuda)
-    lr = torch.full((m,), 0.02, device=cuda)
+def _cubic_case(m, d, device, seed):
+    """A non-symmetric H per worker: a symmetric random part, shifted to be
+    positive definite for even workers and left indefinite (a saddle, where
+    the cubic term stops the growth) for odd ones, plus a small non-symmetric
+    part; gradients of different scales and per-worker step sizes, so that
+    the workers stop at different iterations."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    H = torch.empty(m, d, d, device=device)
+    for w in range(m):      # one worker's draws at a time
+        A = torch.randn(d, d, generator=gen, device=device)
+        B = torch.randn(d, d, generator=gen, device=device)
+        H[w] = (A + A.T) / (2 * d ** 0.5) + 0.05 * B / d ** 0.5
+        if w % 2 == 0:
+            H[w].diagonal().add_(2.0)
+        del A, B
+    g = torch.randn(m, d, generator=gen, device=device) / d ** 0.5
+    g *= torch.logspace(0, -3, m, device=device)[:, None]
+    lr = 0.1 + 0.15 * torch.rand(m, generator=gen, device=device)
+    return g, H, lr
+
+
+# the cubic kernel's tolerance: s within 1e-5 absolute and iteration counts
+# within 1 of the plain version: the cluster's sums run in another order,
+# and one iteration more or less at the tolerance boundary moves s by at
+# most lr·tol.  Each worker's s also within 1e-4 of its norm (plus 2·lr·tol
+# where the counts differ): the smallest workers' entries are about 1e-5
+CUBIC_ATOL = 1e-5
+CUBIC_RTOL = 1e-4
+
+
+def _assert_cubic_close(s, it, ps, pit, lr, tol):
+    assert bool(torch.isfinite(s).all())
+    assert (s - ps).abs().max().item() <= CUBIC_ATOL
+    assert (it - pit).abs().max().item() <= 1
+    slack = torch.where(it == pit, 0.0, 2 * lr * tol)
+    gap = torch.linalg.vector_norm(s - ps, dim=1)
+    assert bool((gap <= CUBIC_RTOL * torch.linalg.vector_norm(ps, dim=1)
+                 + slack).all())
+
+
+@pytest.mark.parametrize("m,d", [(20, 1), (20, 123), (20, 300), (20, 301),
+                                 (20, 5000), (6, 9000)])
+def test_cubic_kernel_matches_plain(cuda, m, d):
+    """Resident H (d up to 301), streamed H (5000, and 9000, past the 8192
+    floats a CTA once held), and d not a multiple of 4; one launch a call."""
+    g, H, lr = _cubic_case(m, d, cuda, seed=d)
     s0 = torch.zeros_like(g)
+    before = LAUNCHES["cubic_solve"]
     s, it = cubic_solve(g, H, s0, lr, tol=1e-6, max_iters=300)
+    assert LAUNCHES["cubic_solve"] == before + 1
     ps, pit = cubic_solve_plain(g, H, s0, lr, M=10.0, gamma=1.0, tol=1e-6,
                                 max_iters=300)
-    assert (s - ps).abs().max().item() <= 1e-5
-    assert (it - pit).abs().max().item() <= 1
+    _assert_cubic_close(s, it, ps, pit, lr, 1e-6)
+    assert len(set(pit.tolist())) > 1          # the workers stop apart
+    plan = cubic_plan(m, d)
+    assert plan.mode == ("resident" if d <= 301 else "streamed")
+    if d >= 5000:
+        assert plan.cluster > 1
+    # the same bits on a second run: no atomics, a fixed order of sums
+    s2, it2 = cubic_solve(g, H, s0, lr, tol=1e-6, max_iters=300)
+    assert torch.equal(s2, s) and torch.equal(it2, it)
+
+
+@pytest.mark.parametrize("m,d,mode", [
+    (20, 123, "resident"), (8, 1001, "streamed"), (8, 4352, "streamed"),
+    (1, 28545, "streamed_global_s")])
+def test_cubic_kernel_plans_match_plain(cuda, m, d, mode):
+    """Each mode where the rules pick it (the iterate in device memory past
+    d = 28544: 3.26 GB of H), scalar loads (d % 4 != 0) and 16-byte ones,
+    from a non-zero iterate (of norm about 0.5 at every d: a larger one
+    makes the step diverge in any summation order), and one step from the
+    plain answer."""
+    g, H, lr = _cubic_case(m, d, cuda, seed=7 * d + m)
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    s0 = 0.5 * torch.randn(m, d, generator=gen, device=cuda) / d ** 0.5
+    assert cubic_plan(m, d).mode == mode
+    s, it = cubic_solve(g, H, s0, lr, tol=1e-6, max_iters=100)
+    ps, pit = cubic_solve_plain(g, H, s0, lr, M=10.0, gamma=1.0, tol=1e-6,
+                                max_iters=100)
+    _assert_cubic_close(s, it, ps, pit, lr, 1e-6)
+    one, _ = cubic_solve(g, H, ps, lr, tol=-1.0, max_iters=1)
+    p1, _ = cubic_solve_plain(g, H, ps, lr, M=10.0, gamma=1.0, tol=-1.0,
+                              max_iters=1)
+    assert (one - p1).abs().max().item() <= 1e-6
+
+
+def test_cubic_kernel_raises_on_what_it_cannot_serve(cuda):
+    with pytest.raises(RuntimeError):
+        cubic_plan(0, 300)                        # no workers to lay out
+    with pytest.raises(ValueError):
+        cubic_plan(20, 300, device="cpu")         # a plan is for a card
+    g = torch.zeros(2, 3, device=cuda)
+    with pytest.raises(TypeError):                # the kernel reads float32
+        cubic_solve(g, torch.zeros(2, 3, 3, device=cuda, dtype=torch.float64))
 
 
 @pytest.mark.parametrize("m,d", [(3, 1), (20, 300), (33, 513), (300, 300)])
@@ -126,15 +209,23 @@ def test_topk_sharded_kernel_equals_plain(cuda, m, d, k):
 
 
 @pytest.mark.parametrize("m,k,d,dup", [(20, 500, 5000, False),
+                                       (20, 30, 300, False),
+                                       (16, 100, 4096, True),
+                                       (7, 37, 1000, True),
                                        (8, 64, 8192, True),
-                                       (3, 16, 65537, False)])
+                                       (3, 16, 65537, False),
+                                       (64, 4096, 65536, False)])
 def test_sparse_agg_kernel_equals_plain(cuda, m, k, d, dup):
     """Bit for bit, without weights, with 0/1 weights and with fractional
-    ones; duplicate indices within rows and unsorted rows included."""
+    ones: drive A's (20, 500) over 5000, w8a's (20, 30) over 300, d ≤ 4096
+    with duplicates within rows and across workers, k not a power of 2,
+    unsorted rows, and (64, 4096) payloads (2 MB, more than a CTA's shared
+    memory); one launch a call, through ``aggregate_sparse`` at every d."""
     gen = torch.Generator(device=cuda).manual_seed(m * k + d)
     vals = torch.randn(m, k, generator=gen, device=cuda)
     if dup:
-        idx = torch.randint(0, 50, (m, k), generator=gen, device=cuda)
+        idx = torch.randint(0, min(d, 50), (m, k), generator=gen,
+                            device=cuda)
     else:
         idx = torch.argsort(torch.rand(m, d, generator=gen, device=cuda),
                             dim=1)[:, :k]
@@ -142,10 +233,12 @@ def test_sparse_agg_kernel_equals_plain(cuda, m, k, d, dup):
     before = LAUNCHES["sparse_agg"]
     for w in (None, (torch.rand(m, generator=gen, device=cuda) < 0.5).float(),
               2 * torch.rand(m, generator=gen, device=cuda)):
-        out = aggregate_sparse_gridded(vals, idx, d, w)
+        out = aggregate_sparse(vals, idx, d, w)
         want = aggregate_sparse_plain(vals, idx, d, w)
         assert torch.equal(out.view(torch.int32), want.view(torch.int32))
-    assert LAUNCHES["sparse_agg"] == before + 3
+        again = aggregate_sparse_gridded(vals, idx, d, w)
+        assert torch.equal(again.view(torch.int32), out.view(torch.int32))
+    assert LAUNCHES["sparse_agg"] == before + 6
 
 
 # The model kernels against their plain versions: float32 within 1e-5, bf16

@@ -156,3 +156,27 @@ def test_plan_and_dispatch():
         aggregate_sparse_gridded(tv, ti[:, :3].contiguous(), 5000)
     with pytest.raises(ValueError):
         aggregate_sparse_gridded(tv, ti, 5000, weights=torch.ones(3))
+
+
+@pytest.mark.parametrize("d", [1, 300, 4096])
+@pytest.mark.parametrize("ints", [True, False])
+def test_scatter_width_equals_plain_bitwise_with_duplicates(d, ints):
+    """Up to d = 4096 the CPU keeps the reference's scatter-add
+    (``index_add_``), and the card launches the kernel; both must give the
+    contract's bits.  Heavy duplicates within rows and across workers
+    (indices drawn from at most 7 coordinates), rows in no order, k not a
+    power of 2, no weights, 0/1 weights and fractional ones."""
+    for m, k in ((20, 30), (6, 47), (3, 200)):
+        assert agg_kernel_plan(m, d, k=k) == "scatter"
+        r = np.random.default_rng(d * 1000 + m * 10 + ints)
+        vals = (r.integers(-8, 9, (m, k)) if ints
+                else r.standard_normal((m, k))).astype(np.float32)
+        idx = r.integers(0, min(d, 7), (m, k)).astype(np.int32)
+        for w in _weight_sets(m, d + k):
+            tw = None if w is None else torch.from_numpy(w)
+            want = aggregate_sparse_plain(torch.from_numpy(vals),
+                                          torch.from_numpy(idx), d, tw)
+            out = _port(vals, idx, d, w)
+            np.testing.assert_array_equal(_bits(out), _bits(want.numpy()))
+            ref = np.asarray(sparse_aggregate_ref(vals, idx, d, w))
+            np.testing.assert_array_equal(_bits(out), _bits(ref))
