@@ -59,15 +59,20 @@ From the root of a checkout, with one card.  In order it:
 7. the model zoo's dense decoder (slice 4): holds RMSNorm and flash
    attention against their plain versions at gemma3-27b's shapes
    (:data:`RMS_SHAPES`, :data:`FLASH_CASES`; float32 within 1e-5, bf16
-   within rtol 2^-7 and atol 1e-5); runs a reduced gemma3 with grouped kv
-   heads on the card and on the CPU over the same weights (forward and 20
-   greedy tokens); serves gemma3-27b at full width through
-   ``launch.serve.run_serving`` (:data:`SERVE`: 28.42 B bf16 parameters
-   made on the card, batch 4, 32 prompt tokens through the decode path and
-   32 greedy ones), asserting 125 RMSNorm launches a decode step and no
-   other; then ``Model.forward`` on a (1, 4096) prompt, asserting 62 flash
-   attention and 125 RMSNorm launches, each block and the logits held
-   against the same weights through the plain versions
+   within rtol 2^-7 and atol 1e-5), flash attention also at
+   recurrentgemma-9b's Dh = 256 (:data:`FLASH_WIDE_HEADS`, bf16 and
+   float32) and with a flat and a peaked softmax
+   (:data:`FLASH_Q_SCALES`), and counts the ``HGMMA`` instructions of the
+   built flash library (the bf16 route's ``wgmma``; there must be some);
+   runs a reduced gemma3 with grouped kv heads on the card and on the CPU
+   over the same weights (forward and 20 greedy tokens); serves
+   gemma3-27b at full width through ``launch.serve.run_serving``
+   (:data:`SERVE`: 28.42 B bf16 parameters made on the card, batch 4, 32
+   prompt tokens through the decode path and 32 greedy ones), asserting
+   125 RMSNorm launches a decode step and no other; then
+   ``Model.forward`` on a (1, 4096) prompt, asserting 62 flash attention
+   and 125 RMSNorm launches, each block and the logits held against the
+   same weights through the plain versions
    (:data:`BLOCK_REL_TOL`, the plain forward's own one-ulp spread), each
    block's norms and attention through the kernels on the plain calls'
    inputs (bf16 tolerance above), and
@@ -77,8 +82,12 @@ From the root of a checkout, with one card.  In order it:
    PyTorch call computes the same function (``torch.topk``, ``torch.sort``,
    ``index_add_``, ``F.rms_norm``, ``F.scaled_dot_product_attention``),
    that call with CUDA events (``ms``, ``plain_ms``, ``library_ms``: per
-   call, host launch overhead included), the kernels alone with
-   ``torch.profiler`` (``device_ms``; the cubic solve also in the launch
+   call, host launch overhead included), the kernels and the library
+   calls alone with ``torch.profiler`` (``device_ms``,
+   ``library_device_ms``; flash attention's the median of
+   :data:`DEVICE_RUNS` runs, at gemma3-27b's global and local layers and
+   recurrentgemma-9b's heads, by CUDA events around single calls where
+   the profiler's traces keep showing no event of the kernel; the cubic solve also in the launch
    plans of :data:`CUBIC_SWEEP_W8A` and :data:`CUBIC_SWEEP_GISETTE`, taken
    in turn, three readings each), and
    works out each kernel's bound from this run's inputs; then profiles one
@@ -94,6 +103,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -208,6 +218,23 @@ PREFILL_LEN = 4096
 RMS_SHAPES = ((PREFILL_LEN, 5376), (SERVE["batch"], 5376))
 FLASH_HEADS = (32, 16, 128)
 FLASH_CASES = ((PREFILL_LEN, 0), (PREFILL_LEN, 1024), (4000, 0), (4000, 1024))
+# recurrentgemma-9b's attention: 16 query heads, one kv head, Dh = 256,
+# window 2048 (held in bf16 at S = 4096 and float32 at S = 4000, timed in
+# bf16 at S = 4096)
+FLASH_WIDE_HEADS = (16, 1, 256)
+FLASH_WIDE_WINDOW = 2048
+# the bf16 kernel's split of P into two bf16 halves, stressed by a flat
+# softmax (q scaled by 0.01: outputs near zero, the mean of up to 4096 v
+# rows) and a peaked one (q scaled by 8), at gemma3-27b's global layer
+FLASH_Q_SCALES = (0.01, 8.0)
+# flash attention's device times: the median of this many profiler runs,
+# each made at most PROFILE_TRIES times while its trace shows no event of
+# the kernel.  Every profiler window is padded by PROFILE_PAD_S of host
+# time on each side, so that a kernel near the window's edge is not lost
+# to the skew between the host's and the card's clocks.
+DEVICE_RUNS = 5
+PROFILE_TRIES = 3
+PROFILE_PAD_S = 0.02
 # the model kernels against their plain versions: float32 within 1e-5; bf16
 # within rtol 2^-7 (one to two bf16 ulps: kernel and plain version differ
 # only in the order of their float32 sums before the cast) and atol 1e-5
@@ -280,9 +307,11 @@ def device_ms_by_name(fn, reps: int, names) -> dict:
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
     totals = dict.fromkeys((*names, "all"), 0.0)
     for evt in prof.key_averages():
         us = getattr(evt, "device_time_total",
@@ -299,6 +328,60 @@ def kernel_device_ms(fn, reps: int, kernel: str):
     """Mean device milliseconds of the CUDA kernel whose name contains
     ``kernel``, per call of ``fn`` (None when the trace shows none)."""
     return device_ms_by_name(fn, reps, (kernel,))[kernel]
+
+
+def event_ms_per_call(fn, reps: int) -> float:
+    """Median milliseconds of one call of ``fn`` between two CUDA events
+    recorded just before and just after it, over ``reps`` calls."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def median_device_ms(fn, reps: int, kernel: str) -> dict:
+    """:func:`kernel_device_ms` over :data:`DEVICE_RUNS` profiler runs: the
+    median and the range, under ``"by": "profiler"``.  A run whose trace
+    shows no event of ``kernel`` is made again, up to
+    :data:`PROFILE_TRIES` times in all.  If one still shows none, every run
+    is timed by CUDA events around single calls instead
+    (:func:`event_ms_per_call`, launch gaps included), under
+    ``"by": "cuda_events"``."""
+    runs, empty = [], 0
+    for _ in range(DEVICE_RUNS):
+        for _ in range(PROFILE_TRIES):
+            ms = kernel_device_ms(fn, reps, kernel)
+            if ms is not None:
+                break
+            empty += 1
+        runs.append(ms)
+    by = "profiler"
+    if None in runs:
+        log(f"{kernel}: {empty} profiler runs showed no event of it; its "
+            f"device times are taken by CUDA events instead")
+        runs = [event_ms_per_call(fn, reps) for _ in range(DEVICE_RUNS)]
+        by = "cuda_events"
+    elif empty:
+        log(f"{kernel}: {empty} profiler runs showed no event of it and "
+            f"were made again")
+    return {"median": statistics.median(runs), "min": min(runs),
+            "max": max(runs), "by": by, "empty_traces": empty}
+
+
+def library_device_ms(fn, reps: int):
+    """Mean device milliseconds per call of every kernel and copy that the
+    library call ``fn`` runs."""
+    return device_ms_by_name(fn, reps, ())["all"]
 
 
 def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float = PEAK_OPS_PER_S):
@@ -978,10 +1061,12 @@ def profiled(fn):
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        time.sleep(PROFILE_PAD_S)
     rows = sorted(((getattr(e, "device_time_total",
                             getattr(e, "cuda_time_total", 0.0)) / 1e3,
                     e.count, e.key[:90]) for e in prof.key_averages()),
@@ -1098,6 +1183,8 @@ def time_kernels(inp: dict, launches: dict) -> list:
                                 20)
     topk_dev = kernel_device_ms(lambda: topk_compress(s, k), 200,
                                 "topk_compress_kernel")
+    topk_lib_dev = library_device_ms(lambda: torch.topk(s.abs(), k, dim=1),
+                                     200)
     log(f"device time per launch (profiler): cubic_solve {cubic_dev} ms, "
         f"topk_compress {topk_dev} ms")
     center = inp["center"]
@@ -1146,7 +1233,8 @@ def time_kernels(inp: dict, launches: dict) -> list:
         f"workers), plain {cubic_plain_ms:.4f} ms, bound {cubic_bound:.6f} "
         f"ms, H stream {stream_bytes} B = {stream_ms_at_hbm:.6f} ms at the "
         f"HBM rate; topk {topk_ms:.4f} ms, plain {topk_plain_ms:.4f} ms, "
-        f"torch.topk {topk_lib_ms:.4f} ms, bound {topk_bound:.6f} ms")
+        f"torch.topk {topk_lib_ms:.4f} ms ({topk_lib_dev} ms device), "
+        f"bound {topk_bound:.6f} ms")
     return [
         {"name": "cubic_solve", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/cubic_solve.cu",
@@ -1166,6 +1254,7 @@ def time_kernels(inp: dict, launches: dict) -> list:
          "max_abs_err": inp["topk_err"], "ms": topk_ms,
          "plain_ms": topk_plain_ms, "bound_ms": topk_bound,
          "bound_by": topk_by, "library_ms": topk_lib_ms,
+         "library_device_ms": topk_lib_dev,
          "device_ms": topk_dev, "shape": [m, d], "k": k},
         {"name": "krum_scores", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/krum_scores.cu",
@@ -1222,7 +1311,7 @@ def time_sparse_center(vals, idx, keep, d: int, reps: int = 200) -> dict:
             "plain_ms": cuda_ms(lambda: aggregate_sparse_plain(vals, idx, d,
                                                                keep), 50),
             "library_ms": cuda_ms(lib, reps),
-            "library_device_ms": device_ms_by_name(lib, reps, ())["all"],
+            "library_device_ms": library_device_ms(lib, reps),
             "bound_ms": bound, "bound_by": by}
 
 
@@ -1245,6 +1334,8 @@ def time_gisette_kernels(inp: dict, launches: dict, w8a_payload) -> list:
     topk_lib_ms = cuda_ms(lambda: torch.topk(s.abs(), k, dim=1), reps=200)
     topk_dev = device_ms_by_name(lambda: topk_compress_sharded(s, k), 200,
                                  passes)
+    topk_lib_dev = library_device_ms(lambda: torch.topk(s.abs(), k, dim=1),
+                                     200)
     # x read once and the payload written once; per coordinate three
     # histogram updates and the sure/tie compares
     topk_bound, topk_by = bound_ms(4 * m * d + 8 * m * k, 5 * m * d)
@@ -1252,7 +1343,8 @@ def time_gisette_kernels(inp: dict, launches: dict, w8a_payload) -> list:
     agg_w8a = time_sparse_center(*w8a_payload)
     log(f"topk_compress_sharded at ({m}, {d}), k = {k}: {topk_ms:.4f} ms a "
         f"call, device by pass {topk_dev}, plain {topk_plain_ms:.4f} ms, "
-        f"torch.topk {topk_lib_ms:.4f} ms, bound {topk_bound:.7f} ms; "
+        f"torch.topk {topk_lib_ms:.4f} ms ({topk_lib_dev} ms device), "
+        f"bound {topk_bound:.7f} ms; "
         f"the sparse center (ms; drive A, then w8a): {json.dumps(agg)}; "
         f"{json.dumps(agg_w8a)}")
     return [
@@ -1265,6 +1357,7 @@ def time_gisette_kernels(inp: dict, launches: dict, w8a_payload) -> list:
          "max_abs_err": inp["topk_err"], "ms": topk_ms,
          "plain_ms": topk_plain_ms, "bound_ms": topk_bound,
          "bound_by": topk_by, "library_ms": topk_lib_ms,
+         "library_device_ms": topk_lib_dev,
          "device_ms": sum(v for key, v in topk_dev.items()
                           if key in passes[:4] and v is not None),
          "device_ms_by_pass": topk_dev, "shape": [m, d], "k": k},
@@ -1294,21 +1387,25 @@ def close_to_plain(got, want, what: str) -> float:
     return float(diff.max())
 
 
-def flash_inputs(S: int, dtype, seed: int):
-    """q (1, S, 32, 128) and k, v (1, S, 16, 128): gemma3-27b's attention
-    at a (1, S) prefill."""
+def flash_inputs(S: int, dtype, seed: int, heads=FLASH_HEADS,
+                 q_scale: float = 1.0):
+    """q (1, S, H, Dh) and k, v (1, S, Hkv, Dh) for ``heads`` = (H, Hkv,
+    Dh), by default (32, 16, 128): gemma3-27b's attention at a (1, S)
+    prefill; q scaled by ``q_scale``."""
     import torch
 
-    H, Hkv, Dh = FLASH_HEADS
+    H, Hkv, Dh = heads
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    return tuple(torch.randn(1, S, h, Dh, generator=gen,
-                             device="cuda").to(dtype) for h in (H, Hkv, Hkv))
+    q, k, v = (torch.randn(1, S, h, Dh, generator=gen, device="cuda")
+               for h in (H, Hkv, Hkv))
+    return (q * q_scale).to(dtype), k.to(dtype), v.to(dtype)
 
 
 def check_model_kernels() -> dict:
     """RMSNorm and flash attention against their plain versions on the card
-    at the model's shapes (:data:`RMS_SHAPES`, :data:`FLASH_CASES`); returns
-    their largest errors."""
+    at the model's shapes (:data:`RMS_SHAPES`, :data:`FLASH_CASES`,
+    :data:`FLASH_WIDE_HEADS`, :data:`FLASH_Q_SCALES`); returns their
+    largest errors."""
     import torch
 
     from repro_torch.kernels import (
@@ -1328,23 +1425,58 @@ def check_model_kernels() -> dict:
                 rmsnorm(x, w), rmsnorm_plain(x, w), ("rmsnorm", n, d, dtype)))
     log(f"rmsnorm within its tolerance of the plain version at {RMS_SHAPES}, "
         f"bf16 and float32 (largest |Δ| {rms_err:.3e})")
+
+    def hold_flash(S, window, dtype, seed, **kw):
+        q, k, v = flash_inputs(S, dtype, seed, **kw)
+        got = attention_bshd(q, k, v, causal=True, window=window)
+        torch.cuda.synchronize()
+        want = attention_plain(q, k, v, causal=True, window=window)
+        return close_to_plain(got, want, ("flash_attention", S, window,
+                                          dtype, kw))
+
     flash_err = 0.0
     for i, (S, window) in enumerate(FLASH_CASES):
         dtypes = ((torch.bfloat16,) if S == PREFILL_LEN
                   else (torch.bfloat16, torch.float32))
         for dtype in dtypes:
-            q, k, v = flash_inputs(S, dtype, seed=10 + i)
-            got = attention_bshd(q, k, v, causal=True, window=window)
-            torch.cuda.synchronize()
-            want = attention_plain(q, k, v, causal=True, window=window)
-            err = close_to_plain(got, want, ("flash_attention", S, window,
-                                              dtype))
-            flash_err = max(flash_err, err)
-            del q, k, v, got, want
+            flash_err = max(flash_err, hold_flash(S, window, dtype, 10 + i))
     log(f"flash_attention within its tolerance of the plain version at "
         f"(1, S, 32/16, 128), (S, window) in {FLASH_CASES}, bf16 (and "
         f"float32 at S = 4000) (largest |Δ| {flash_err:.3e})")
-    return {"rms_err": rms_err, "flash_err": flash_err}
+    wide_err = max(
+        hold_flash(S, FLASH_WIDE_WINDOW, dtype, 30, heads=FLASH_WIDE_HEADS)
+        for S, dtype in ((PREFILL_LEN, torch.bfloat16),
+                         (4000, torch.float32)))
+    log(f"flash_attention at recurrentgemma-9b's heads {FLASH_WIDE_HEADS}, "
+        f"window {FLASH_WIDE_WINDOW}, bf16 at S = {PREFILL_LEN} and float32 "
+        f"at S = 4000: within its tolerance (largest |Δ| {wide_err:.3e})")
+    split_err = {scale: hold_flash(PREFILL_LEN, 0, torch.bfloat16, 40,
+                                   q_scale=scale)
+                 for scale in FLASH_Q_SCALES}
+    log(f"flash_attention bf16 with q scaled by {FLASH_Q_SCALES} (flat and "
+        f"peaked softmax) at (1, {PREFILL_LEN}, 32/16, 128): within its "
+        f"tolerance (largest |Δ| by scale {split_err})")
+    return {"rms_err": rms_err,
+            "flash_err": max(flash_err, wide_err, *split_err.values()),
+            "flash_wide_err": wide_err, "flash_split_err": split_err,
+            "hgmma": hgmma_count()}
+
+
+def hgmma_count() -> int:
+    """The ``HGMMA`` (wgmma) instructions in the built flash attention
+    library, by ``cuobjdump -sass``: the bf16 route runs on the tensor
+    cores only if there are some."""
+    from repro_torch.kernels import _build
+
+    lib = _build.build_all()["flash_attention"]
+    cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    n = sum("HGMMA" in line for line in sass.splitlines())
+    log(f"{lib.name}: {n} HGMMA instructions in its SASS")
+    check(n > 0, ("no HGMMA in the flash attention library", lib.name))
+    return n
 
 
 def check_small_model_against_cpu() -> None:
@@ -1695,14 +1827,17 @@ def time_model_kernels(inp: dict, launches: dict) -> list:
                                           "rmsnorm_kernel"),
             "plain_ms": cuda_ms(lambda: rmsnorm_plain(x, w), reps),
             "library_ms": cuda_ms(lambda: F.rms_norm(x, (d,), w1, 1e-6), reps),
+            "library_device_ms": library_device_ms(
+                lambda: F.rms_norm(x, (d,), w1, 1e-6), reps),
             # x read and the result written once, bf16; 4 operations an
             # element (square-add, then two multiplies and the cast)
             "bound": bound_ms(n_bytes, 4 * n * d),
         }
     flash = {}
-    H, Hkv, Dh = FLASH_HEADS
-    for window in (0, 1024):
-        q, k, v = flash_inputs(PREFILL_LEN, torch.bfloat16, seed=20)
+    for heads, window in ((FLASH_HEADS, 0), (FLASH_HEADS, 1024),
+                          (FLASH_WIDE_HEADS, FLASH_WIDE_WINDOW)):
+        H, Hkv, Dh = heads
+        q, k, v = flash_inputs(PREFILL_LEN, torch.bfloat16, 20, heads=heads)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         if window:
             pos = torch.arange(PREFILL_LEN, device="cuda")
@@ -1714,15 +1849,20 @@ def time_model_kernels(inp: dict, launches: dict) -> list:
             lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
                 qt, kt, vt, is_causal=True, enable_gqa=True)
         pairs = visible_pairs(PREFILL_LEN, window)
-        flash[window] = {
+        dev = median_device_ms(
+            lambda: attention_bshd(q, k, v, window=window), 10,
+            "flash_kernel")
+        flash[(Dh, window)] = {
             "ms": cuda_ms(lambda: attention_bshd(q, k, v, window=window), 10),
-            "device_ms": kernel_device_ms(
-                lambda: attention_bshd(q, k, v, window=window), 10,
-                "flash_kernel"),
+            "device_ms": dev["median"],
+            "device_ms_range": [dev["min"], dev["max"]],
+            "device_ms_by": dev["by"],
+            "empty_traces": dev["empty_traces"],
             "plain_ms": cuda_ms(lambda: attention_plain(q, k, v,
                                                         window=window), 3,
                                 warmup=1),
             "library_ms": cuda_ms(lib, 10),
+            "library_device_ms": library_device_ms(lib, 10),
             "visible_pairs": pairs,
             # q, k, v read and the output written once, bf16; Q·Kᵀ and P·V
             # over the visible pairs, 4·Dh operations a pair and head, at
@@ -1732,9 +1872,12 @@ def time_model_kernels(inp: dict, launches: dict) -> list:
         }
         del q, k, v, qt, kt, vt
     log(f"rmsnorm (ms): {json.dumps({str(k): v for k, v in rms.items()})}")
-    log(f"flash_attention (ms, by window): {json.dumps(flash)}")
+    log(f"flash_attention (ms, by (Dh, window)): "
+        f"{json.dumps({str(k): v for k, v in flash.items()})}")
     pre, dec = rms[RMS_SHAPES[0]], rms[RMS_SHAPES[1]]
-    glob, loc = flash[0], flash[1024]
+    glob, loc = flash[(128, 0)], flash[(128, 1024)]
+    wide = flash[(256, FLASH_WIDE_WINDOW)]
+    H, Hkv, Dh = FLASH_HEADS
     return [
         {"name": "rmsnorm", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
@@ -1743,11 +1886,13 @@ def time_model_kernels(inp: dict, launches: dict) -> list:
          "ms": pre["ms"], "plain_ms": pre["plain_ms"],
          "bound_ms": pre["bound"][0], "bound_by": pre["bound"][1],
          "library_ms": pre["library_ms"], "device_ms": pre["device_ms"],
+         "library_device_ms": pre["library_device_ms"],
          "shape": list(RMS_SHAPES[0]), "dtype": "bfloat16",
          "at_decode_shape": {"shape": list(RMS_SHAPES[1]),
                              "ms": dec["ms"], "device_ms": dec["device_ms"],
                              "plain_ms": dec["plain_ms"],
                              "library_ms": dec["library_ms"],
+                             "library_device_ms": dec["library_device_ms"],
                              "bound_ms": dec["bound"][0],
                              "bound_by": dec["bound"][1]}},
         {"name": "flash_attention", "route": "cuda",
@@ -1758,16 +1903,41 @@ def time_model_kernels(inp: dict, launches: dict) -> list:
          "plain_ms": glob["plain_ms"], "bound_ms": glob["bound"][0],
          "bound_by": glob["bound"][1], "library_ms": glob["library_ms"],
          "device_ms": glob["device_ms"],
+         "device_ms_range": glob["device_ms_range"],
+         "device_ms_by": glob["device_ms_by"],
+         "empty_traces": glob["empty_traces"],
+         "library_device_ms": glob["library_device_ms"],
          "shape": [1, PREFILL_LEN, H, Hkv, Dh], "dtype": "bfloat16",
          "window": 0, "visible_pairs": glob["visible_pairs"],
+         "hgmma_in_sass": inp["hgmma"],
+         "max_abs_err_dh256": inp["flash_wide_err"],
+         "max_abs_err_by_q_scale": inp["flash_split_err"],
          "at_window_1024": {"ms": loc["ms"], "device_ms": loc["device_ms"],
+                            "device_ms_range": loc["device_ms_range"],
+                            "device_ms_by": loc["device_ms_by"],
+                            "empty_traces": loc["empty_traces"],
                             "plain_ms": loc["plain_ms"],
                             "library_ms": loc["library_ms"],
+                            "library_device_ms": loc["library_device_ms"],
                             "library": "scaled_dot_product_attention with a "
                                        "boolean band mask",
                             "visible_pairs": loc["visible_pairs"],
                             "bound_ms": loc["bound"][0],
-                            "bound_by": loc["bound"][1]}},
+                            "bound_by": loc["bound"][1]},
+         "at_dh256": {"shape": [1, PREFILL_LEN, *FLASH_WIDE_HEADS],
+                      "window": FLASH_WIDE_WINDOW, "ms": wide["ms"],
+                      "device_ms": wide["device_ms"],
+                      "device_ms_range": wide["device_ms_range"],
+                      "device_ms_by": wide["device_ms_by"],
+                      "empty_traces": wide["empty_traces"],
+                      "plain_ms": wide["plain_ms"],
+                      "library_ms": wide["library_ms"],
+                      "library_device_ms": wide["library_device_ms"],
+                      "library": "scaled_dot_product_attention with a "
+                                 "boolean band mask",
+                      "visible_pairs": wide["visible_pairs"],
+                      "bound_ms": wide["bound"][0],
+                      "bound_by": wide["bound"][1]}},
     ]
 
 

@@ -6,9 +6,11 @@ reference_attention`` at ``q_offset = 0``.
 
 * On a CUDA tensor :func:`attention_bshd` launches
   ``csrc/flash_attention.cu``, replacing the reference's Pallas
-  ``flash_attention``, or raises.  The kernel reads kv head
-  ``h // (H / Hkv)`` in place, where the reference repeats the kv heads and
-  transposes to ``(B, H, S, Dh)`` before its kernel, and takes any S.
+  ``flash_attention``, or raises: bf16 on the tensor cores (``wgmma`` fed
+  by TMA), float32 on the SIMT float32 units, Dh in :data:`HEAD_DIMS`.
+  The kernel reads kv head ``h // (H / Hkv)`` in place, where the
+  reference repeats the kv heads and transposes to ``(B, H, S, Dh)``
+  before its kernel, and takes any S.
 * On a CPU tensor it runs :func:`attention_plain`, the plain PyTorch
   version of the same contract.
 """
@@ -23,8 +25,9 @@ from . import _build
 NEG_INF = -1e30
 #: the dtypes the kernel takes, by their code in ``csrc/flash_attention.cu``
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-#: the head widths the kernel is built for
-HEAD_DIMS = (64, 128)
+#: the head widths the kernel is built for: those of every configuration
+#: the reference ships (whisper 64, the decoders 128, recurrentgemma 256)
+HEAD_DIMS = (64, 128, 256)
 
 
 def attention_plain(q, k, v, *, causal=True, window=0, q_offset=0):
@@ -89,7 +92,8 @@ def attention_bshd(q, k, v, *, causal=True, window=0):
     B, S, H, Dh = q.shape
     if Dh not in HEAD_DIMS:
         raise ValueError(f"the attention kernel takes Dh in {HEAD_DIMS}, "
-                         f"got {Dh}")
+                         f"got {Dh} (other head widths: ROADMAP.md Queue 2 "
+                         f"item K2)")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
     if any(t.data_ptr() % 16 for t in (q, k, v, out)):

@@ -276,19 +276,49 @@ def test_rmsnorm_kernel_matches_plain(cuda, n, d, dtype):
 @pytest.mark.parametrize("B,S,H,Hkv,Dh", [(2, 100, 4, 2, 64),
                                           (1, 200, 4, 4, 128),
                                           (1, 4096, 32, 16, 128),
-                                          (1, 4000, 32, 16, 128)])
+                                          (1, 4000, 32, 16, 128),
+                                          (2, 300, 4, 1, 256),
+                                          (1, 4096, 16, 1, 256)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_matches_plain(cuda, B, S, H, Hkv, Dh, dtype):
-    """Causal, sliding windows (16 and the model's 1024) and no mask, with
-    grouped kv heads, at S a multiple of the kernel's tile and not."""
+    """Causal, sliding windows (16 and the models' 1024 and 2048) and no
+    mask, with grouped kv heads and one kv head (recurrentgemma-9b's
+    Dh = 256), at S a multiple of the kernels' tiles and not."""
     gen = torch.Generator(device=cuda).manual_seed(S * H + Dh)
     q, k, v = (torch.randn(B, S, h, Dh, generator=gen, device=cuda).to(dtype)
                for h in (H, Hkv, Hkv))
     before = LAUNCHES["flash_attention"]
-    cases = ((True, 0), (True, 16), (True, 1024), (False, 0))
+    cases = ((True, 0), (True, 16), (True, 1024), (True, 2048), (False, 0))
     for causal, window in cases:
         got = attention_bshd(q, k, v, causal=causal, window=window)
         want = attention_plain(q, k, v, causal=causal, window=window)
         assert bool(torch.isfinite(got.float()).all())
         _close(got, want)
     assert LAUNCHES["flash_attention"] == before + len(cases)
+
+
+@pytest.mark.parametrize("q_scale", [0.01, 8.0])
+def test_flash_attention_bf16_holds_flat_and_peaked_softmax(cuda, q_scale):
+    """The bf16 kernel feeds P to the tensor cores as two bf16 halves: a
+    flat softmax (outputs near zero, the mean of up to 4096 v rows) and a
+    peaked one still meet the bf16 tolerance, global and local."""
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    q, k, v = (torch.randn(1, 4096, h, 128, generator=gen, device=cuda)
+               for h in (32, 16, 16))
+    q, k, v = (q * q_scale).bfloat16(), k.bfloat16(), v.bfloat16()
+    before = LAUNCHES["flash_attention"]
+    for window in (0, 1024):
+        _close(attention_bshd(q, k, v, window=window),
+               attention_plain(q, k, v, window=window))
+    assert LAUNCHES["flash_attention"] == before + 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_raises_on_other_head_widths(cuda, dtype):
+    """Dh outside (64, 128, 256) raises, naming the open item; nothing
+    falls back to the plain version and nothing launches."""
+    q = torch.zeros(1, 64, 4, 96, device=cuda, dtype=dtype)
+    before = LAUNCHES["flash_attention"]
+    with pytest.raises(ValueError, match="Queue 2 item K2"):
+        attention_bshd(q, q, q)
+    assert LAUNCHES["flash_attention"] == before

@@ -125,12 +125,23 @@ def _bhsd(a):
     return jnp.asarray(a).transpose(0, 2, 1, 3)
 
 
-@pytest.mark.parametrize("causal,window", [(True, 0), (True, 8), (True, 16),
-                                           (False, 0)])
-def test_attention_plain_matches_flash_reference(causal, window):
+# (B, S, H, Hkv, Dh): narrow heads, and recurrentgemma-9b's Dh = 256; the
+# explicit ids keep the narrow cases' names stable across added widths
+NARROW, WIDE = (2, 64, 3, 3, 64), (1, 64, 2, 2, 256)
+
+
+@pytest.mark.parametrize("causal,window,dims", [
+    pytest.param(True, 0, NARROW, id="True-0"),
+    pytest.param(True, 8, NARROW, id="True-8"),
+    pytest.param(True, 16, NARROW, id="True-16"),
+    pytest.param(False, 0, NARROW, id="False-0"),
+    pytest.param(True, 0, WIDE, id="True-0-Dh256"),
+    pytest.param(True, 16, WIDE, id="True-16-Dh256"),
+])
+def test_attention_plain_matches_flash_reference(causal, window, dims):
     """Head-major oracle and the Pallas kernel (interpret mode), S = 64 in
     tiles of 16; the port reads the model's (B, S, H, Dh) layout."""
-    q, k, v = _qkv(window + causal, 2, 64, 3, 3, 64)
+    q, k, v = _qkv(window + causal, *dims)
     got = attention_bshd(_t(q), _t(k), _t(v), causal=causal, window=window)
     got = got.numpy().transpose(0, 2, 1, 3)
     args = (_bhsd(q), _bhsd(k), _bhsd(v))
@@ -142,11 +153,16 @@ def test_attention_plain_matches_flash_reference(causal, window):
                            block_k=16)), rtol=F32_TOL, atol=F32_TOL)
 
 
-@pytest.mark.parametrize("window", [0, 16])
-def test_attention_plain_matches_attention_bshd_with_gqa(window):
+@pytest.mark.parametrize("window,dims", [
+    pytest.param(0, (1, 48, 4, 2, 64), id="0"),
+    pytest.param(16, (1, 48, 4, 2, 64), id="16"),
+    pytest.param(16, (1, 48, 4, 1, 256), id="16-mqa-Dh256"),
+])
+def test_attention_plain_matches_attention_bshd_with_gqa(window, dims):
     """Grouped kv heads: the reference repeats them before its kernel; the
-    port's kernel and plain version read kv head h // (H / Hkv)."""
-    q, k, v = _qkv(7 + window, 1, 48, 4, 2, 64)
+    port's kernel and plain version read kv head h // (H / Hkv).  One kv
+    head at Dh = 256 is recurrentgemma-9b's attention."""
+    q, k, v = _qkv(7 + window, *dims)
     got = attention_bshd(_t(q), _t(k), _t(v), window=window).numpy()
     want = ref_ops.attention_bshd(jnp.asarray(q), jnp.asarray(k),
                                   jnp.asarray(v), causal=True, window=window,
