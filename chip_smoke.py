@@ -13,12 +13,15 @@ From the root of a checkout, with one card.  In order it:
    within an absolute 1e-5 and one iteration, the bound the CPU parity tests
    use for Algorithm 2: one iteration more or less at the tolerance boundary
    moves s by at most lr·tol, and the cluster's sums run in another
-   order); then the center's kernels over (m, d) in :data:`AGG_SHAPES`:
-   the worker sort bit
-   for bit (ties, ±0, ±inf and a NaN column included; also against the
-   CPU's stable sort), krum's scores within rtol 1e-5 (distances summed in
-   another order) and exactly on an integer stack, and krum's argmin
-   wherever the two best scores differ by more than that;
+   order); then the center's kernels over (m, d) in :data:`AGG_SHAPES`,
+   :data:`AGG_WIDE_SHAPES` (the reference's model-scale roofline ladder, up
+   to a 512 MB stack) and :data:`AGG_LIMIT_SHAPES` (m = 16384, the
+   kernels' limit): the worker sort bit for bit (ties, ±0, ±inf and a NaN
+   column included; also against the CPU's stable sort over
+   :data:`AGG_SHAPES`), krum's scores within rtol 1e-5 (distances summed
+   in another order) and exactly on an integer stack, its d2 bitwise
+   symmetric (read through the launch helper ``krum_scores`` uses), and
+   krum's argmin wherever the two best scores differ by more than that;
 4. runs Algorithm 1 through ``ExperimentSpec.build()`` at full width: the
    paper's w8a logistic regression (d = 300, m = 20, 2487 rows per worker)
    with top-k uplinks through the kernel, EF21, norm_trim and a
@@ -78,7 +81,9 @@ From the root of a checkout, with one card.  In order it:
    inputs (bf16 tolerance above), and
    the first 6 layers' bf16 logits against their float32 forward;
 8. times each kernel call (the cubic solve at w8a and at d = 5000, the
-   sparse center at w8a and at drive A), its plain version and, where one
+   sparse center at w8a and at drive A, krum and the worker sort at the w8a
+   stack and :data:`AGG_TIMED_SHAPES`, each with its launch plan), its
+   plain version and, where one
    PyTorch call computes the same function (``torch.topk``, ``torch.sort``,
    ``index_add_``, ``F.rms_norm``, ``F.scaled_dot_product_attention``),
    that call with CUDA events (``ms``, ``plain_ms``, ``library_ms``: per
@@ -200,6 +205,14 @@ CUBIC_RTOL = 1e-4
 # the center's kernels: the w8a stack, odd shapes, m = 256 (the reference
 # kernel's on-chip bound) and m > 256
 AGG_SHAPES = ((3, 1), (20, 300), (33, 513), (256, 4096), (300, 300))
+# the reference's aggregation roofline ladder (benchmarks/
+# table1_communication.py): model-scale update vectors, the largest a 512 MB
+# stack; then the sort's columns wider than a warp and the kernels' limit,
+# m = 16384
+AGG_WIDE_SHAPES = ((32, 131072), (128, 1_000_000))
+AGG_LIMIT_SHAPES = ((2048, 512), (16384, 8))
+# the center kernels timed beyond the w8a stack
+AGG_TIMED_SHAPES = ((300, 300), (256, 4096), (32, 131072), (128, 1_000_000))
 KRUM_RTOL = 1e-5
 
 # Slice 4, the model zoo's dense decoder: gemma3-27b at full width (62
@@ -681,7 +694,9 @@ def scores_decide(scores) -> bool:
 
 def check_agg_kernels(center):
     """The center's kernels against their plain versions on the card, over
-    :data:`AGG_SHAPES` and the w8a round's own stack; returns their
+    :data:`AGG_SHAPES` (the sort also against the CPU's stable sort),
+    :data:`AGG_WIDE_SHAPES` and :data:`AGG_LIMIT_SHAPES`, and the w8a
+    round's own stack; krum's d2 bitwise symmetric at each.  Returns the
     records' errors."""
     import torch
 
@@ -694,25 +709,29 @@ def check_agg_kernels(center):
         sort_workers_plain,
         trimmed_mean_fused,
     )
+    from repro_torch.kernels.robust_agg import _krum_launch
 
     def bits(t):
         return t.view(torch.int32)
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     krum_rel, n_argmin = 0.0, 0
-    for m, d in AGG_SHAPES:
+    for m, d in AGG_SHAPES + AGG_WIDE_SHAPES + AGG_LIMIT_SHAPES:
         stacks = agg_stacks(m, d, gen)
         for kind, x in stacks.items():
             out = sort_workers(x)
             torch.cuda.synchronize()
             check(torch.equal(bits(out), bits(sort_workers_plain(x))),
                   ("sort_workers vs plain", m, d, kind))
-            check(torch.equal(bits(out.cpu()),
-                              bits(sort_workers_plain(x.cpu()))),
-                  ("sort_workers vs the CPU's stable sort", m, d, kind))
+            if (m, d) in AGG_SHAPES:
+                check(torch.equal(bits(out.cpu()),
+                                  bits(sort_workers_plain(x.cpu()))),
+                      ("sort_workers vs the CPU's stable sort", m, d, kind))
         x, n_byz = stacks["normal"], m // 5
-        got = krum_scores(x, n_byz)
+        del stacks
+        got, d2 = _krum_launch(x, n_byz)
         torch.cuda.synchronize()
+        check(torch.equal(bits(d2), bits(d2.T)), ("krum d2 symmetric", m, d))
         want = krum_scores_plain(x, n_byz)
         check(bool(((got - want).abs() <= KRUM_RTOL * want.abs()).all()),
               ("krum_scores vs plain", m, d))
@@ -722,14 +741,18 @@ def check_agg_kernels(center):
             check(int(torch.argmin(got)) == int(torch.argmin(want)),
                   ("krum argmin", m, d))
             n_argmin += 1
+        del x, got, d2, want
+        torch.cuda.empty_cache()
     ints = torch.randint(-3, 4, (20, 300), generator=gen,
                          device="cuda").float()
     check(torch.equal(krum_scores(ints, 4), krum_scores_plain(ints, 4)),
           "krum_scores exact on an integer stack")
-    log(f"sort_workers equals its plain version bit for bit over {AGG_SHAPES}"
-        f" (normal, ties with ±0, ±inf and NaN), and the CPU's stable sort; "
-        f"krum_scores within rtol {KRUM_RTOL} (largest {krum_rel:.3e}), "
-        f"exact on integers, argmin equal in {n_argmin} shapes")
+    shapes = AGG_SHAPES + AGG_WIDE_SHAPES + AGG_LIMIT_SHAPES
+    log(f"sort_workers equals its plain version bit for bit over {shapes} "
+        f"(normal, ties with ±0, ±inf and NaN), and the CPU's stable sort "
+        f"over {AGG_SHAPES}; krum_scores within rtol {KRUM_RTOL} (largest "
+        f"{krum_rel:.3e}), d2 bitwise symmetric, exact on integers, argmin "
+        f"equal in {n_argmin} shapes")
 
     # the w8a round's own stack, and the epilogues on top of the sort
     got, want = krum_scores(center, 4), krum_scores_plain(center, 4)
@@ -1144,10 +1167,6 @@ def time_kernels(inp: dict, launches: dict) -> list:
     from repro_torch.kernels import (
         cubic_solve,
         cubic_solve_plain,
-        krum_scores,
-        krum_scores_plain,
-        sort_workers,
-        sort_workers_plain,
         topk_compress,
         topk_compress_plain,
     )
@@ -1189,46 +1208,21 @@ def time_kernels(inp: dict, launches: dict) -> list:
         f"topk_compress {topk_dev} ms")
     center = inp["center"]
     cm, cd = center.shape
-    krum_ms = cuda_ms(lambda: krum_scores(center, 4), reps=200)
-    krum_plain_ms = cuda_ms(lambda: krum_scores_plain(center, 4), reps=200)
-    krum_dev = kernel_device_ms(lambda: krum_scores(center, 4), 200,
-                                "krum_scores_kernel")
-    # each input read once, the scores written once; 3 operations per
-    # coordinate of each of the m² pairs (difference, square, add)
-    krum_bound, krum_by = bound_ms(4 * cm * cd + 4 * cm, 3 * cm * cm * cd)
-    sort_ms = cuda_ms(lambda: sort_workers(center), reps=200)
-    sort_plain_ms = cuda_ms(lambda: sort_workers_plain(center), reps=200)
-    sort_lib_ms = cuda_ms(lambda: torch.sort(center, dim=0), reps=200)
-    sort_dev = kernel_device_ms(lambda: sort_workers(center), 200,
-                                "sort_workers_kernel")
-    # the stack read and written once; a comparison sort's least work,
-    # ⌈log₂ m⌉ compares per value
-    sort_bound, sort_by = bound_ms(8 * cm * cd,
-                                   cm * cd * math.ceil(math.log2(cm)))
-    # the larger shapes of AGG_SHAPES, for how the two designs scale
+    w8a_center = time_center(center, 4, 200, 200)
+    krum, sort = w8a_center["krum"], w8a_center["sort"]
+    # the larger stacks, for how the two designs scale
     scaling = {}
     gen = torch.Generator(device="cuda").manual_seed(3)
-    for sm, sd in AGG_SHAPES[3:]:
+    for sm, sd in AGG_TIMED_SHAPES:
         x = torch.randn(sm, sd, generator=gen, device="cuda")
-        scaling[f"{sm}x{sd}"] = {
-            "krum_ms": cuda_ms(lambda: krum_scores(x, sm // 5), reps=20),
-            "krum_device_ms": kernel_device_ms(
-                lambda: krum_scores(x, sm // 5), 20, "krum_scores_kernel"),
-            "krum_plain_ms": cuda_ms(lambda: krum_scores_plain(x, sm // 5),
-                                     reps=5),
-            "sort_ms": cuda_ms(lambda: sort_workers(x), reps=20),
-            "sort_device_ms": kernel_device_ms(
-                lambda: sort_workers(x), 20, "sort_workers_kernel"),
-            "sort_plain_ms": cuda_ms(lambda: sort_workers_plain(x), reps=20),
-            "torch_sort_ms": cuda_ms(lambda: torch.sort(x, dim=0), reps=20),
-        }
+        big = sm * sd > 10**7
+        scaling[f"{sm}x{sd}"] = time_center(x, sm // 5, 20 if big else 200,
+                                            2 if big else 20)
+        del x
+        torch.cuda.empty_cache()
     log(f"center kernels at larger stacks (ms): {json.dumps(scaling)}")
-    log(f"center kernels on the w8a stack {tuple(center.shape)}: krum_scores "
-        f"{krum_ms:.4f} ms per call, {krum_dev} ms device, plain "
-        f"{krum_plain_ms:.4f} ms, bound {krum_bound:.7f} ms; sort_workers "
-        f"{sort_ms:.4f} ms per call, {sort_dev} ms device, plain "
-        f"{sort_plain_ms:.4f} ms, torch.sort {sort_lib_ms:.4f} ms, bound "
-        f"{sort_bound:.7f} ms")
+    log(f"center kernels on the w8a stack {tuple(center.shape)}: "
+        f"{json.dumps(w8a_center)}")
     log(f"cubic_solve {cubic_ms:.4f} ms ({n_iters} iterations over {m} "
         f"workers), plain {cubic_plain_ms:.4f} ms, bound {cubic_bound:.6f} "
         f"ms, H stream {stream_bytes} B = {stream_ms_at_hbm:.6f} ms at the "
@@ -1260,26 +1254,78 @@ def time_kernels(inp: dict, launches: dict) -> list:
          "source": "src/repro_torch/kernels/csrc/krum_scores.cu",
          "replaces": "src/repro/kernels/robust_agg.py:358",
          "launches": launches["krum_scores"],
-         "max_abs_err": inp["krum_err"], "ms": krum_ms,
-         "plain_ms": krum_plain_ms, "bound_ms": krum_bound,
-         "bound_by": krum_by, "library_ms": None, "device_ms": krum_dev,
+         "max_abs_err": inp["krum_err"], "ms": krum["ms"],
+         "plain_ms": krum["plain_ms"], "bound_ms": krum["bound_ms"],
+         "bound_by": krum["bound_by"], "library_ms": None,
+         "device_ms": krum["device_ms"], "plan": krum["plan"],
          "shape": [cm, cd], "n_byz": 4,
          "max_rel_err_over_shapes": inp["krum_rel"],
-         "at_larger_shapes": {key: {k: v for k, v in rec.items()
-                                    if k.startswith("krum")}
+         "at_larger_shapes": {key: rec["krum"]
                               for key, rec in scaling.items()}},
         {"name": "sort_workers", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/sort_workers.cu",
          "replaces": "src/repro/kernels/robust_agg.py:408",
          "launches": launches["sort_workers"],
-         "max_abs_err": inp["sort_err"], "ms": sort_ms,
-         "plain_ms": sort_plain_ms, "bound_ms": sort_bound,
-         "bound_by": sort_by, "library_ms": sort_lib_ms,
-         "device_ms": sort_dev, "shape": [cm, cd],
-         "at_larger_shapes": {key: {k: v for k, v in rec.items()
-                                    if not k.startswith("krum")}
+         "max_abs_err": inp["sort_err"], "ms": sort["ms"],
+         "plain_ms": sort["plain_ms"], "bound_ms": sort["bound_ms"],
+         "bound_by": sort["bound_by"], "library_ms": sort["library_ms"],
+         "library_device_ms": sort["library_device_ms"],
+         "device_ms": sort["device_ms"], "plan": sort["plan"],
+         "shape": [cm, cd],
+         "at_larger_shapes": {key: rec["sort"]
                               for key, rec in scaling.items()}},
     ]
+
+
+def time_center(x, n_byz: int, reps: int, plain_reps: int) -> dict:
+    """Krum's scores and the worker sort on one (m, d) stack: each kernel
+    call (CUDA events, ``ms``), its device time (profiler, both of krum's
+    launches), the plain version's call, the bound from this stack's
+    least work, the launch plan; for the sort also ``torch.sort(x,
+    dim=0)``'s call and device time."""
+    import torch
+
+    from repro_torch.kernels import (
+        krum_plan,
+        krum_scores,
+        krum_scores_plain,
+        sort_plan,
+        sort_workers,
+        sort_workers_plain,
+    )
+
+    m, d = x.shape
+    kp, sp = krum_plan(m, d), sort_plan(m, d)
+    # each input read once, the scores written once; 3 operations
+    # (difference, square, add) per coordinate of each of the m(m-1)/2
+    # unordered pairs
+    k_bound, k_by = bound_ms(4 * m * d + 4 * m, 3 * m * (m - 1) // 2 * d)
+    # the stack read and written once; a comparison sort's least work,
+    # ⌈log₂ m⌉ compares per value
+    s_bound, s_by = bound_ms(8 * m * d,
+                             m * d * math.ceil(math.log2(max(m, 2))))
+    krum = {
+        "ms": cuda_ms(lambda: krum_scores(x, n_byz), reps=reps),
+        "device_ms": kernel_device_ms(lambda: krum_scores(x, n_byz), reps,
+                                      "krum_scores_kernel"),
+        "plain_ms": cuda_ms(lambda: krum_scores_plain(x, n_byz),
+                            reps=plain_reps, warmup=1),
+        "bound_ms": k_bound, "bound_by": k_by,
+        "plan": {"tile": kp.tile, "tiles": kp.tiles, "slices": kp.slices,
+                 "fused": kp.fused}}
+    sort = {
+        "ms": cuda_ms(lambda: sort_workers(x), reps=reps),
+        "device_ms": kernel_device_ms(lambda: sort_workers(x), reps,
+                                      "sort_workers_kernel"),
+        "plain_ms": cuda_ms(lambda: sort_workers_plain(x), reps=plain_reps,
+                            warmup=1),
+        "library_ms": cuda_ms(lambda: torch.sort(x, dim=0), reps=reps),
+        "library_device_ms": library_device_ms(lambda: torch.sort(x, dim=0),
+                                               reps),
+        "bound_ms": s_bound, "bound_by": s_by,
+        "plan": {"tile": sp.tile, "pad": sp.pad, "per_thread": sp.per_thread,
+                 "lanes": sp.lanes, "threads": sp.threads}}
+    return {"krum": krum, "sort": sort}
 
 
 def time_sparse_center(vals, idx, keep, d: int, reps: int = 200) -> dict:

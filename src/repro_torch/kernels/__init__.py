@@ -8,10 +8,12 @@ version beside it in the same module:
   row up to d = 1408 (``csrc/topk_compress.cu``) and a grid of row × block
   CTAs beyond (``csrc/topk_sharded.cu``), replacing the reference's Pallas
   ``topk_compress_tiled`` and ``topk_compress_sharded``;
-* :mod:`.robust_agg` -- krum's scores (``csrc/krum_scores.cu``) and the
-  per-coordinate worker sort behind the trimmed mean and the median
-  (``csrc/sort_workers.cu``), replacing the reference's Pallas
-  ``krum_scores_fused`` and ``sort_workers_fused``; and the sparse center
+* :mod:`.robust_agg` -- krum's scores (``csrc/krum_scores.cu``, tiled pair
+  distances split over d, :func:`krum_plan`) and the per-coordinate worker
+  sort behind the trimmed mean and the median (``csrc/sort_workers.cu``, a
+  tile of columns sorted on chip, :func:`sort_plan`), up to m = 16384 on
+  the card, replacing the reference's Pallas ``krum_scores_fused`` and
+  ``sort_workers_fused``; and the sparse center
   (``csrc/sparse_agg.cu``, one launch at every d on the card, bit for bit
   the reference's sequential oracle), replacing the reference's Pallas
   ``aggregate_sparse_gridded`` and, on the card, its scatter branch;
@@ -38,15 +40,21 @@ from .cubic_step import (
 from .flash_attention import attention_bshd, attention_plain
 from .rmsnorm import rmsnorm, rmsnorm_nd, rmsnorm_plain
 from .robust_agg import (
+    KRUM_MAX_M,
+    SORT_MAX_M,
     SPARSE_SCATTER_MAX_D,
+    KrumPlan,
+    SortPlan,
     agg_kernel_plan,
     aggregate_sparse,
     aggregate_sparse_gridded,
     aggregate_sparse_plain,
     coordinate_median_fused,
+    krum_plan,
     krum_scores,
     krum_scores_plain,
     krum_select_fused,
+    sort_plan,
     sort_workers,
     sort_workers_plain,
     trimmed_mean_fused,
@@ -62,9 +70,13 @@ from .topk_compress import (
 
 __all__ = [
     "CubicPlan",
+    "KRUM_MAX_M",
+    "KrumPlan",
     "LAUNCHES",
     "SINGLE_TILE_MAX_D",
+    "SORT_MAX_M",
     "SPARSE_SCATTER_MAX_D",
+    "SortPlan",
     "agg_kernel_plan",
     "aggregate_sparse",
     "aggregate_sparse_gridded",
@@ -80,6 +92,7 @@ __all__ = [
     "cubic_step",
     "default_lr",
     "kernel_plan",
+    "krum_plan",
     "krum_scores",
     "krum_scores_plain",
     "krum_select_fused",
@@ -87,6 +100,7 @@ __all__ = [
     "rmsnorm",
     "rmsnorm_nd",
     "rmsnorm_plain",
+    "sort_plan",
     "sort_workers",
     "sort_workers_plain",
     "topk_compress",

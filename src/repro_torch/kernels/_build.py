@@ -40,8 +40,9 @@ ENTRY_POINTS = {
                     [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _I, _I,
                      _I, _P]),
     "topk_compress": ("topk_compress_launch", [_P, _P, _P, _I, _I, _I, _P]),
-    "krum_scores": ("krum_scores_launch", [_P, _P, _P, _P, _I, _I, _I, _P]),
-    "sort_workers": ("sort_workers_launch", [_P, _P, _I, _I, _P]),
+    "krum_scores": ("krum_scores_launch",
+                    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "sort_workers": ("sort_workers_launch", [_P, _P, _I, _I, _I, _P]),
     "topk_sharded": ("topk_sharded_launch",
                      [_P, _P, _P, _P, _I, _I, _I, _P]),
     "sparse_agg": ("sparse_agg_launch", [_P, _P, _P, _P, _I, _I, _I, _P]),

@@ -16,20 +16,27 @@
   reference's boundary (:func:`agg_kernel_plan`): ``index_add_``, which
   sums in stream order there, up to it, and the plain version beyond.
 * Krum scores (:func:`krum_scores`, ``csrc/krum_scores.cu``), replacing the
-  reference's Pallas ``krum_scores_fused``: only the (m,) scores leave the
-  kernel, and :func:`krum_select_fused` takes their argmin in PyTorch.
+  reference's Pallas ``krum_scores_fused``: tiled pair distances over the
+  upper triangle, split over d (:func:`krum_plan`), then one CTA a row
+  ranks its distances; only the (m,) scores leave the wrapper, and
+  :func:`krum_select_fused` takes their argmin in PyTorch.
 * The per-coordinate worker sort (:func:`sort_workers`,
   ``csrc/sort_workers.cu``), replacing the reference's Pallas
-  ``sort_workers_fused``, with the trimmed-mean and median epilogues of the
-  reference run on top (:func:`trimmed_mean_fused`,
-  :func:`coordinate_median_fused`).
+  ``sort_workers_fused``: a CTA loads a tile of columns once
+  (:func:`sort_plan`) and sorts unique 64-bit keys on chip; the
+  trimmed-mean and median epilogues of the reference run on top
+  (:func:`trimmed_mean_fused`, :func:`coordinate_median_fused`).
 
 Each kernel wrapper launches its kernel on a CUDA tensor, or raises; on a
-CPU tensor it runs its plain version (``*_plain``).  Unlike the reference,
-the wrappers serve every m: the reference's ``DENSE_FUSED_MAX_M`` is a
-bound of its on-chip (P, P) tile, and these kernels keep no such tile.
+CPU tensor it runs its plain version (``*_plain``), at any m.  On the card
+krum and the sort serve m ≤ :data:`KRUM_MAX_M` and :data:`SORT_MAX_M`
+(16384, 64× the reference's ``DENSE_FUSED_MAX_M``), the bound of a row or a
+column held in a block's shared memory, and raise above it.
 """
 from __future__ import annotations
+
+import math
+from dataclasses import dataclass
 
 import torch
 
@@ -38,6 +45,34 @@ from . import _build
 SPARSE_SCATTER_MAX_D = 4096
 # krum_select's diagonal: the self-distance never counts as a neighbour
 _BIG = 1e30
+#: the card's streaming multiprocessors (an H100 SXM's 132)
+SMS = 132
+#: shared memory a block may hold on the card (227 KB)
+SMEM_PER_BLOCK = 232448
+#: the largest m each kernel serves on the card: a column (sort) or a row
+#: of d2 (krum) of 16384 keys and values fills 192 KB of shared memory
+SORT_MAX_M = 16384
+KRUM_MAX_M = 16384
+#: krum's pair kernel stages this many columns at a time, in this many
+#: slots, by tile; its select kernel loads this many partial sums a thread
+#: at once
+KRUM_CHUNK = {32: 64, 64: 32}
+KRUM_STAGES = {32: 3, 64: 4}
+KRUM_BATCH = 16
+#: krum's select ranks a row by counting up to this m, by a sorting network
+#: beyond
+KRUM_RANK_MAX = 64
+#: krum's split over d: the pair CTAs an SM holds at once by tile (T = 32:
+#: 64 registers and 48 KB a CTA; T = 64: 80 registers and 64 KB), at most
+#: this many waves of them, slices of at least this many columns, and
+#: (S, m, m) scratch within this many bytes
+KRUM_CTAS_PER_SM = {32: 4, 64: 3}
+KRUM_WAVES = 4
+KRUM_MIN_SLICE = 256
+KRUM_SCRATCH_MAX = 1 << 28
+#: the plain krum's (rows, rows, d) differences are made in blocks of at
+#: most this many floats (1 GB)
+KRUM_PLAIN_BLOCK = 1 << 28
 
 
 def agg_kernel_plan(m: int, d: int, *, k: int) -> str:
@@ -162,34 +197,165 @@ def krum_k_near(m: int, n_byz: int) -> int:
     return max(m - int(n_byz) - 2, 1)
 
 
+@dataclass(frozen=True)
+class KrumPlan:
+    """How :func:`krum_scores` lays out its launches on the card.  Pair
+    kernel: ``tile`` × ``tile`` tiles of d2 with i ≤ j (``tiles`` of them,
+    in the order of :func:`krum_tiles`), times ``slices`` slices of
+    ``chunks_per_slice`` chunks of :data:`KRUM_CHUNK` columns
+    (:func:`krum_slices`); 256 threads and ``pair_smem`` bytes a CTA, and
+    ``scratch_bytes`` of (slices, m, m) partial sums (0 when one slice
+    writes d2 itself).  Select kernel: one CTA of ``select_threads`` a row,
+    ``select_smem`` bytes; or, ``fused`` (one tile, one slice), none: the
+    pair CTA ranks d2 itself."""
+    m: int
+    d: int
+    tile: int
+    tiles: int
+    slices: int
+    chunks_per_slice: int
+    pair_smem: int
+    scratch_bytes: int
+    fused: bool
+    select_threads: int
+    select_smem: int
+
+    @property
+    def ctas(self) -> int:
+        """CTAs of the pair kernel."""
+        return self.tiles * self.slices
+
+
+def _pad_pow2(m: int) -> int:
+    return max(2, 1 << (m - 1).bit_length())
+
+
+def _krum_split(m: int, d: int, tile: int):
+    """(tiles, slices, chunks a slice) of the pair kernel at this tile: the
+    split over d fills whole waves of the CTAs the card holds at once, up
+    to :data:`KRUM_WAVES` of them (short CTAs balance diagonal tiles, which
+    do half the work, against the others)."""
+    nt = -(-m // tile)
+    tiles = nt * (nt + 1) // 2
+    nchunks = -(-d // KRUM_CHUNK[tile])
+    held = KRUM_CTAS_PER_SM[tile] * SMS
+    slices = 1
+    if tiles < held:
+        cap = min(max(1, d // KRUM_MIN_SLICE),
+                  max(1, KRUM_SCRATCH_MAX // (4 * m * m)))
+        waves = max(1, min(KRUM_WAVES, cap * tiles // held))
+        slices = max(1, min(cap, waves * held // tiles))
+    cps = -(-nchunks // slices)
+    return tiles, (-(-nchunks // cps) if cps else 1), cps
+
+
+def krum_plan(m: int, d: int) -> KrumPlan:
+    """The launch plan of ``csrc/krum_scores.cu`` for an (m, d) stack.  The
+    split S over d only where the tiles alone leave the card short of a
+    wave (:func:`_krum_split`), each slice at least :data:`KRUM_MIN_SLICE`
+    columns and the scratch within :data:`KRUM_SCRATCH_MAX` (S = 1 at the
+    paper's (20, 300)).  Tiles of 64 where they still give two CTAs a
+    multiprocessor (half the staging and L2 re-reads of 32), else 32.
+    Raises above :data:`KRUM_MAX_M`."""
+    if m < 1 or d < 0:
+        raise ValueError(f"krum_plan needs m ≥ 1 and d ≥ 0, got m={m}, d={d}")
+    if m > KRUM_MAX_M:
+        raise ValueError(
+            f"krum_scores' kernel serves m ≤ {KRUM_MAX_M} workers (a row of "
+            f"d2 in one block's shared memory), got m={m}")
+    tile = 64
+    tiles, slices, cps = _krum_split(m, d, tile)
+    if tiles * slices < 2 * SMS:
+        tile = 32
+        tiles, slices, cps = _krum_split(m, d, tile)
+    P = _pad_pow2(m)
+    fused = tiles == 1 and slices == 1
+    threads = 0 if fused else min(max(P // 2, 256), 1024)
+    return KrumPlan(
+        m=m, d=d, tile=tile, tiles=tiles, slices=slices, chunks_per_slice=cps,
+        pair_smem=4 * KRUM_STAGES[tile] * 2 * KRUM_CHUNK[tile] * tile,
+        scratch_bytes=4 * slices * m * m if slices > 1 else 0, fused=fused,
+        select_threads=threads,
+        select_smem=0 if fused else (
+            8 * P + 4 * (-(-m // 4) * 4)
+            + 4 * max(threads * KRUM_BATCH if slices > 1 else 0,
+                      m if m <= KRUM_RANK_MAX else 0)))
+
+
+def krum_tiles(plan: KrumPlan):
+    """(i0, j0) of each pair-kernel tile, in the order of its block index:
+    (0, 0), (0, 1), (1, 1), (0, 2), ...  The tiles with i0 = j0 cover their
+    pairs with i ≤ j."""
+    out = []
+    for t in range(plan.tiles):
+        tj = (math.isqrt(8 * t + 1) - 1) // 2
+        ti = t - tj * (tj + 1) // 2
+        out.append((ti * plan.tile, tj * plan.tile))
+    return out
+
+
+def krum_slices(plan: KrumPlan):
+    """The [begin, end) columns of each slice of the d split."""
+    step = plan.chunks_per_slice * KRUM_CHUNK[plan.tile]
+    return [(s * step, min((s + 1) * step, plan.d))
+            for s in range(plan.slices)]
+
+
+def _krum_d2_plain(flat: torch.Tensor) -> torch.Tensor:
+    """Pairwise squared distances, the registry's math
+    ``((x_i − x_j)²).sum(-1)``, made in blocks of rows and partners of at
+    most :data:`KRUM_PLAIN_BLOCK` differences, so that a model-scale stack
+    does not build its whole (m, m, d) tensor."""
+    m, d = flat.shape
+    per = max(1, KRUM_PLAIN_BLOCK // max(d, 1))
+    bj = min(m, per)
+    bi = max(1, per // bj)
+    d2 = torch.empty((m, m), dtype=flat.dtype, device=flat.device)
+    for i in range(0, m, bi):
+        for j in range(0, m, bj):
+            d2[i:i + bi, j:j + bj] = ((flat[i:i + bi, None, :]
+                                       - flat[None, j:j + bj, :]) ** 2).sum(-1)
+    return d2
+
+
 def krum_scores_plain(flat: torch.Tensor, n_byz: int) -> torch.Tensor:
     """Plain PyTorch krum scores, the registry's math: pairwise squared
     distances, +1e30 on the diagonal, the sum of each row's k nearest."""
     m = flat.shape[0]
-    d2 = ((flat[:, None, :] - flat[None, :, :]) ** 2).sum(-1)
+    d2 = _krum_d2_plain(flat)
     d2 = d2 + torch.eye(m, dtype=d2.dtype, device=d2.device) * _BIG
     k = krum_k_near(m, n_byz)
     return torch.sort(d2, dim=1).values[:, :k].sum(1)
 
 
+def _krum_launch(flat: torch.Tensor, n_byz: int):
+    """Launch ``csrc/krum_scores.cu`` on a CUDA stack: the (m,) scores and
+    the (m, m) d2 they were ranked from (its diagonal +1e30)."""
+    m, d = flat.shape
+    plan = krum_plan(m, d)
+    dev = flat.device
+    scores = torch.empty((m,), dtype=torch.float32, device=dev)
+    d2 = torch.empty((m, m), dtype=torch.float32, device=dev)
+    part = (torch.empty((plan.slices, m, m), dtype=torch.float32, device=dev)
+            if plan.slices > 1 else d2)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        _build.launch("krum_scores", flat.data_ptr(), part.data_ptr(),
+                      d2.data_ptr(), scores.data_ptr(), m, d,
+                      krum_k_near(m, n_byz), plan.tile, plan.slices,
+                      plan.chunks_per_slice, stream)
+    return scores, d2
+
+
 def krum_scores(flat: torch.Tensor, n_byz: int) -> torch.Tensor:
     """(m,) krum scores of an (m, d) float32 stack: the kernel on a CUDA
-    tensor, the plain version on a CPU one."""
-    m, d = _check_stack(flat, "krum_scores")
+    tensor (m ≤ :data:`KRUM_MAX_M`), the plain version on a CPU one."""
+    _check_stack(flat, "krum_scores")
     if n_byz < 0:
         raise ValueError(f"krum_scores needs n_byz ≥ 0, got {n_byz}")
     if flat.device.type == "cpu":
         return krum_scores_plain(flat, n_byz)
-    k = krum_k_near(m, n_byz)
-    dev = flat.device
-    scores = torch.empty((m,), dtype=torch.float32, device=dev)
-    d2 = torch.empty((m, m), dtype=torch.float32, device=dev)
-    sel = torch.empty((m, k), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        _build.launch("krum_scores", flat.data_ptr(), d2.data_ptr(),
-                      sel.data_ptr(), scores.data_ptr(), m, d, k, stream)
-    return scores
+    return _krum_launch(flat, n_byz)[0]
 
 
 def krum_select_fused(flat: torch.Tensor, n_byz: int) -> torch.Tensor:
@@ -206,18 +372,61 @@ def sort_workers_plain(updates: torch.Tensor) -> torch.Tensor:
     return torch.sort(updates, dim=0, stable=True).values
 
 
+@dataclass(frozen=True)
+class SortPlan:
+    """How :func:`sort_workers` lays out its launch on the card: rows padded
+    to ``pad`` (a power of two), ``per_thread`` keys a thread, ``lanes``
+    threads a column; one CTA of ``threads`` sorts each of ``ctas`` tiles
+    of ``tile`` columns, in ``smem_bytes`` of shared memory."""
+    m: int
+    d: int
+    pad: int
+    per_thread: int
+    lanes: int
+    tile: int
+    threads: int
+    smem_bytes: int
+
+    @property
+    def ctas(self) -> int:
+        return -(-self.d // self.tile)
+
+
+def sort_plan(m: int, d: int) -> SortPlan:
+    """The launch plan of ``csrc/sort_workers.cu`` for an (m, d) stack: the
+    tile is as wide as 256 threads allow (at least one column), and the
+    (m, tile) slab plus, for columns wider than a warp, the column's key
+    buffer fit a block's shared memory up to m = :data:`SORT_MAX_M`;
+    raises above it."""
+    if m < 1 or d < 0:
+        raise ValueError(f"sort_plan needs m ≥ 1 and d ≥ 0, got m={m}, d={d}")
+    if m > SORT_MAX_M:
+        raise ValueError(
+            f"sort_workers' kernel serves m ≤ {SORT_MAX_M} workers (a column "
+            f"in one block's shared memory), got m={m}")
+    pad = _pad_pow2(m)
+    per = pad if pad <= 16 else (16 if pad < 4096 else 32)
+    lanes = pad // per
+    tile = max(256, lanes) // lanes
+    smem = 4 * (-(-m * tile // 32) * 32) + (8 * pad * tile if lanes > 32
+                                             else 0)
+    return SortPlan(m=m, d=d, pad=pad, per_thread=per, lanes=lanes,
+                    tile=tile, threads=tile * lanes, smem_bytes=smem)
+
+
 def sort_workers(updates: torch.Tensor) -> torch.Tensor:
     """Ascending sort of every coordinate of an (m, d) float32 stack over
-    the workers: the kernel on a CUDA tensor, the plain version on a CPU
-    one.  Both give the same bits."""
+    the workers: the kernel on a CUDA tensor (m ≤ :data:`SORT_MAX_M`), the
+    plain version on a CPU one.  Both give the same bits."""
     m, d = _check_stack(updates, "sort_workers")
     if updates.device.type == "cpu":
         return sort_workers_plain(updates)
+    plan = sort_plan(m, d)
     out = torch.empty_like(updates)
     with torch.cuda.device(updates.device):
         stream = torch.cuda.current_stream().cuda_stream
         _build.launch("sort_workers", updates.data_ptr(), out.data_ptr(), m,
-                      d, stream)
+                      d, plan.tile, stream)
     return out
 
 

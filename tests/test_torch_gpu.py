@@ -29,6 +29,7 @@ from repro_torch.kernels import (
     topk_compress_plain,
     topk_compress_sharded,
 )
+from repro_torch.kernels.robust_agg import _krum_launch
 
 pytestmark = pytest.mark.gpu
 
@@ -150,7 +151,8 @@ def test_cubic_kernel_raises_on_what_it_cannot_serve(cuda):
         cubic_solve(g, torch.zeros(2, 3, 3, device=cuda, dtype=torch.float64))
 
 
-@pytest.mark.parametrize("m,d", [(3, 1), (20, 300), (33, 513), (300, 300)])
+@pytest.mark.parametrize("m,d", [(3, 1), (20, 300), (33, 513), (300, 300),
+                                 (256, 4096), (32, 131072)])
 def test_sort_workers_kernel_equals_plain_bitwise(cuda, m, d):
     """Bit for bit, ±0 in worker order and NaN last, on the card and
     against the CPU's stable sort."""
@@ -171,7 +173,8 @@ def test_sort_workers_kernel_equals_plain_bitwise(cuda, m, d):
     assert LAUNCHES["sort_workers"] == before + 3
 
 
-@pytest.mark.parametrize("m,d", [(3, 1), (20, 300), (33, 513), (256, 4096)])
+@pytest.mark.parametrize("m,d", [(3, 1), (20, 300), (33, 513), (256, 4096),
+                                 (32, 131072)])
 def test_krum_kernel_matches_plain(cuda, m, d):
     """Scores within rtol 1e-5 (distances summed in another order); exact
     on an integer stack, whose sums are exact in float32."""
@@ -185,6 +188,30 @@ def test_krum_kernel_matches_plain(cuda, m, d):
     assert torch.equal(krum_scores(ints, m // 5),
                        krum_scores_plain(ints, m // 5))
     assert LAUNCHES["krum_scores"] == before + 2
+
+
+@pytest.mark.parametrize("m,d", [(20, 300), (33, 513), (256, 4096),
+                                 (32, 131072)])
+def test_krum_kernel_d2_is_symmetric_and_repeats(cuda, m, d):
+    """d2[i, j] and d2[j, i] bitwise equal, +1e30 on the diagonal, and the
+    same bits on a second launch (partial sums added in a fixed order)."""
+    gen = torch.Generator(device=cuda).manual_seed(m + d)
+    x = torch.randn(m, d, generator=gen, device=cuda)
+    scores, d2 = _krum_launch(x, m // 5)
+    again, d2_again = _krum_launch(x, m // 5)
+    bits = d2.view(torch.int32)
+    assert torch.equal(bits, bits.T)
+    assert torch.equal(bits, d2_again.view(torch.int32))
+    assert torch.equal(scores.view(torch.int32), again.view(torch.int32))
+    assert bool((d2.diagonal() >= 1e30).all())
+
+
+def test_center_kernels_raise_past_their_limits(cuda):
+    x = torch.zeros(16385, 1, device=cuda)
+    with pytest.raises(ValueError, match="m ≤ 16384"):
+        sort_workers(x)
+    with pytest.raises(ValueError, match="m ≤ 16384"):
+        krum_scores(x, 1)
 
 
 @pytest.mark.parametrize("m,d,k", [(20, 1409, 140), (20, 5000, 500),
