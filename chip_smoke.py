@@ -9,7 +9,8 @@ From the root of a checkout, with one card.  In order it:
    (one ``nvcc`` per source, all started together);
 2. prints the card's name and power limit;
 3. holds each kernel against its plain PyTorch version on the card, at the
-   shapes of the w8a run (top-k exactly, ties included; the cubic solve
+   shapes of the w8a run (top-k exactly, ties included, and over the edge
+   stacks of :data:`TOPK_EDGE_SINGLE`, one launch a call; the cubic solve
    within an absolute 1e-5 and one iteration, the bound the CPU parity tests
    use for Algorithm 2: one iteration more or less at the tolerance boundary
    moves s by at most lr·tol, and the cluster's sums run in another
@@ -44,7 +45,10 @@ From the root of a checkout, with one card.  In order it:
    the cubic solve against its plain version on the first round's g and H,
    the sharded top-k against its plain version bit for bit over
    :data:`SHARDED_TOPK_SHAPES` (the round's own (20, 5000) updates, normal
-   and tie-heavy rows), and the sparse center bit for bit over
+   and tie-heavy rows) and the edge stacks of :data:`TOPK_EDGE_SHARDED` (a
+   cluster of 8; a cluster of 16 whose slices outgrow shared memory), and
+   the sparse center bit
+   for bit over
    :data:`SPARSE_AGG_SHAPES` (the round's own (20, 500) payloads, with 0/1
    weights and without; w8a's width; duplicates within rows and across
    workers at d ≤ 4096, through ``aggregate_sparse``); then drives A (sparse
@@ -95,8 +99,11 @@ From the root of a checkout, with one card.  In order it:
    the profiler's traces keep showing no event of the kernel; the cubic solve also in the launch
    plans of :data:`CUBIC_SWEEP_W8A` and :data:`CUBIC_SWEEP_GISETTE`, taken
    in turn, three readings each), and
-   works out each kernel's bound from this run's inputs; then profiles one
-   round of drive A and of each w8a spec.
+   works out each kernel's bound from this run's inputs; times the top-k
+   calls of :data:`TOPK_TIMED` (:func:`time_topk`: the device span of a
+   call, one kernel and nothing else, ``torch.topk`` beside it, and the
+   cluster kernel at other cluster sizes); then profiles one round of drive A and
+   of each w8a spec.
 
 The line before the last carries the card's name and power limit, the one
 before it the kernels' JSON record; the last line is
@@ -111,6 +118,7 @@ import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -164,6 +172,18 @@ def gisette_uplink_bits(k: int) -> int:
 
 SHARDED_TOPK_SHAPES = ((20, 1409, 140), (20, 5000, 500), (20, 5000, 4999),
                        (2, 65536, 6553), (3, 65537, 1))
+# the top-k kernels over the edge stacks (:func:`topk_edge_stacks`) at
+# k = 1, d / 10 and d: the single tile's (m, d), then the cluster kernel's,
+# a cluster of 8 at (1, 131072) and at (2, 1,000,000) a cluster of 16 (the
+# non-portable size) whose slices outgrow shared memory
+TOPK_EDGE_SINGLE = ((20, 1), (20, 300), (1000, 300), (20, 1408))
+TOPK_EDGE_SHARDED = ((1, 1409), (20, 1409), (20, 5000), (3, 65537),
+                     (1, 131072), (2, 1_000_000))
+# the top-k calls timed (m, d, k): the w8a round's, drive A's, the mesh
+# runtime's (2, 65536) and the reference's top-k ladder at ratio 0.1
+# (benchmarks/table1_communication.py KERNEL_TIMING_DS, one row)
+TOPK_TIMED = ((20, 300, 30), (20, 5000, 500), (2, 65536, 6553),
+              (1, 16384, 1638), (1, 131072, 13107), (1, 1_000_000, 100_000))
 # (m, k, d, duplicate indices within rows and across workers): drive A's
 # payloads, w8a's width, and d ≤ 4096 (the reference's scatter width)
 SPARSE_AGG_SHAPES = ((20, 500, 5000, False), (20, 30, 300, False),
@@ -248,6 +268,13 @@ FLASH_Q_SCALES = (0.01, 8.0)
 DEVICE_RUNS = 5
 PROFILE_TRIES = 3
 PROFILE_PAD_S = 0.02
+# device spans of single calls (top-k): each call runs in a profiler range
+# of this name, after a few calls outside any, and is followed by this much
+# host sleep; the trace's categories of device work
+SPAN_GAP_S = 0.002
+SPAN_WARMUP = 3
+SPAN_MARK = "chip_smoke_span_call"
+DEVICE_CATS = ("kernel", "gpu_memset", "gpu_memcpy")
 # the model kernels against their plain versions: float32 within 1e-5; bf16
 # within rtol 2^-7 (one to two bf16 ulps: kernel and plain version differ
 # only in the order of their float32 sums before the cast) and atol 1e-5
@@ -389,6 +416,67 @@ def median_device_ms(fn, reps: int, kernel: str) -> dict:
             f"were made again")
     return {"median": statistics.median(runs), "min": min(runs),
             "max": max(runs), "by": by, "empty_traces": empty}
+
+
+def device_span_ms(fn, reps: int) -> dict:
+    """Per call of ``fn``, each on an idle card (a synchronise and
+    :data:`SPAN_GAP_S` of host sleep after it): the device span from its
+    first device event's start to its last one's end, so the gaps inside a
+    chain of launches count (``span_ms``), the sum of its events' durations
+    (``busy_ms``) and of its kernels' alone (``kernel_ms``), medians over
+    ``reps`` calls, and the device events (kernels, memsets, copies) a call
+    runs (``events``).  From a ``torch.profiler`` trace exported as Chrome
+    JSON: each call runs inside a ``record_function`` range, after
+    :data:`SPAN_WARMUP` calls outside any (a trace may miss the device
+    events of its first calls), and a device event belongs to the last
+    range that starts before it (the calls are :data:`SPAN_GAP_S` apart, so
+    half of that absorbs the skew between the host's and the card's
+    clocks).  A trace in which a call shows no device event is taken again,
+    up to :data:`PROFILE_TRIES` times."""
+    import bisect
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    skew = SPAN_GAP_S * 1e6 / 2
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_PAD_S)
+            for i in range(SPAN_WARMUP + reps):
+                with (record_function(SPAN_MARK) if i >= SPAN_WARMUP
+                      else contextlib.nullcontext()):
+                    fn()
+                torch.cuda.synchronize()
+                time.sleep(SPAN_GAP_S)
+            time.sleep(PROFILE_PAD_S)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = Path(tmp) / "trace.json"
+            prof.export_chrome_trace(str(path))
+            trace = json.loads(path.read_text()).get("traceEvents", [])
+        starts = sorted(float(e["ts"]) for e in trace
+                        if e.get("ph") == "X" and e.get("name") == SPAN_MARK
+                        and e.get("cat") == "user_annotation")
+        calls = [[] for _ in starts]
+        for e in trace:
+            if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS:
+                ts = float(e["ts"])
+                i = bisect.bisect_right(starts, ts + skew) - 1
+                if i >= 0:
+                    calls[i].append((ts, ts + float(e["dur"]),
+                                     e["cat"] == "kernel"))
+        if len(calls) == reps and all(calls):
+            break
+    check(len(calls) == reps and all(calls),
+          ("device events of every call", reps, [len(c) for c in calls]))
+    return {"span_ms": statistics.median(
+                (max(e for _, e, _ in c) - min(b for b, _, _ in c)) / 1e3
+                for c in calls),
+            "busy_ms": statistics.median(
+                sum(e - b for b, e, _ in c) / 1e3 for c in calls),
+            "kernel_ms": statistics.median(
+                sum(e - b for b, e, kern in c if kern) / 1e3 for c in calls),
+            "events": statistics.median(len(c) for c in calls)}
 
 
 def library_device_ms(fn, reps: int):
@@ -592,6 +680,66 @@ def cubic_sweep(g, H, s0, lr, kw, s_ref, it_ref, plans, reps: int,
     return out
 
 
+def topk_edge_stacks(m: int, d: int, seed: int) -> dict:
+    """(m, d) float32 stacks on the card that stress the top-k contract:
+    normal rows, rows rounded to halves and small integers (ties), zeros,
+    ±0.0 mixed with values, ±inf among values, subnormals only, and rows of
+    one magnitude with mixed signs."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rand():
+        return torch.rand(m, d, generator=gen, device="cuda")
+
+    normal = torch.randn(m, d, generator=gen, device="cuda")
+    signs = torch.where(rand() < 0.5, -1.0, 1.0)
+    u = rand()
+    return {"normal": normal, "halves": torch.round(normal * 2) / 2,
+            "ints": torch.randint(-3, 4, (m, d), generator=gen,
+                                  device="cuda").float(),
+            "zeros": torch.zeros(m, d, device="cuda"),
+            "pm_zero": torch.where(rand() < 0.6, 0.0, normal) * signs,
+            "pm_inf": torch.where(u < 0.05, float("inf"),
+                                  torch.where(u < 0.1, float("-inf"),
+                                              normal)),
+            "subnormal": normal * 1e-39, "equal": signs * 0.75}
+
+
+def hold_topk_edges(shapes, counter: str) -> float:
+    """``topk_compress`` over :func:`topk_edge_stacks` of each (m, d) at
+    k = 1, d / 10 and d: values (their bits) and indices equal to the plain
+    version's, and one launch of ``counter`` a call; returns the largest
+    |Δ| (0)."""
+    import torch
+
+    from repro_torch.kernels import (
+        LAUNCHES,
+        topk_compress,
+        topk_compress_plain,
+    )
+
+    err = 0.0
+    for m, d in shapes:
+        for kind, x in topk_edge_stacks(m, d, m + d).items():
+            for k in sorted({1, max(1, d // 10), d}):
+                before = LAUNCHES[counter]
+                v, i = topk_compress(x, k)
+                torch.cuda.synchronize()
+                check(LAUNCHES[counter] == before + 1,
+                      (counter, "one launch a call", m, d, k, kind))
+                pv, pi = topk_compress_plain(x, k)
+                check(torch.equal(i, pi) and torch.equal(
+                    v.view(torch.int32), pv.view(torch.int32)),
+                      (counter, "vs plain", m, d, k, kind))
+                err = max(err, float((v - pv).abs().nan_to_num().max()))
+            del x
+    log(f"{counter} equals its plain version bit for bit over the edge "
+        f"stacks at {shapes} (normal, halves, ints, zeros, ±0, ±inf, "
+        f"subnormals, one magnitude; k = 1, d / 10, d), one launch a call")
+    return err
+
+
 def check_kernels(exp):
     """Each kernel against its plain version on the card; returns the
     record of each (without launches and times)."""
@@ -641,6 +789,8 @@ def check_kernels(exp):
             topk_err = max(topk_err, float((v - pv).abs().max()))
     log(f"topk_compress equals its plain version exactly (w8a updates, "
         f"tie-heavy, zeros; k in 1, {k}, d-1)")
+    topk_err = max(topk_err, hold_topk_edges(TOPK_EDGE_SINGLE,
+                                             "topk_compress"))
     return {"g": g, "H": H, "lr": lr, "cfg": cfg, "s": s, "plan": plan,
             "cubic_err": cubic_err, "topk_err": topk_err, "k": k}
 
@@ -854,6 +1004,8 @@ def check_gisette_kernels():
             topk_err = max(topk_err, float((v - pv).abs().max()))
     log(f"topk_compress_sharded equals its plain version bit for bit over "
         f"{SHARDED_TOPK_SHAPES} (normal, halves; the d = 5000 updates)")
+    topk_err = max(topk_err, hold_topk_edges(TOPK_EDGE_SHARDED,
+                                             "topk_sharded"))
 
     vals, idx = topk_compress_sharded(s, k)
     keep, _ = norm_trim_keep(torch.linalg.vector_norm(vals, dim=1),
@@ -1118,8 +1270,8 @@ def round_breakdown(spec_kw: dict = W8A, phases: bool = True,
     wall_ms, busy_ms, rows = profiled(
         lambda: algo.step(w, p.X_workers, p.y_workers, gen, v, st))
     top = "; ".join(f"{name} x{n}: {ms:.4f} ms" for ms, n, name in rows[:8])
-    ours = ("krum_scores", "sort_workers", "sparse_agg", "topk_compress",
-            "hist_kernel", "select_kernel", "count_kernel", "pack_kernel")
+    ours = ("krum_scores", "sort_workers", "sparse_agg", "topk_warp_kernel",
+            "topk_cluster_kernel")
     center = "; ".join(f"{name} x{n}: {ms:.4f} ms" for ms, n, name in rows
                        if any(k in name for k in ours))
     log(f"one {label} round ({spec_kw['compressor']}, "
@@ -1201,7 +1353,7 @@ def time_kernels(inp: dict, launches: dict) -> list:
     cubic_by_plan = cubic_sweep(g, H, s0, lr, kw, s, iters, CUBIC_SWEEP_W8A,
                                 20)
     topk_dev = kernel_device_ms(lambda: topk_compress(s, k), 200,
-                                "topk_compress_kernel")
+                                "topk_warp_kernel")
     topk_lib_dev = library_device_ms(lambda: torch.topk(s.abs(), k, dim=1),
                                      200)
     log(f"device time per launch (profiler): cubic_solve {cubic_dev} ms, "
@@ -1249,7 +1401,8 @@ def time_kernels(inp: dict, launches: dict) -> list:
          "plain_ms": topk_plain_ms, "bound_ms": topk_bound,
          "bound_by": topk_by, "library_ms": topk_lib_ms,
          "library_device_ms": topk_lib_dev,
-         "device_ms": topk_dev, "shape": [m, d], "k": k},
+         "device_ms": topk_dev, "shape": [m, d], "k": k,
+         "plan": topk_plan_record(m, d)},
         {"name": "krum_scores", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/krum_scores.cu",
          "replaces": "src/repro/kernels/robust_agg.py:358",
@@ -1328,6 +1481,126 @@ def time_center(x, n_byz: int, reps: int, plain_reps: int) -> dict:
     return {"krum": krum, "sort": sort}
 
 
+def topk_plan_record(m: int, d: int) -> dict:
+    """The launch ``topk_compress`` makes for an (m, d) stack, as JSON; for
+    the cluster kernel with the coordinates a CTA keeps in shared memory
+    and its shared memory, as the source lays them out on this card."""
+    import dataclasses
+
+    from repro_torch.kernels import topk_plan
+    from repro_torch.kernels.topk_compress import sharded_layout
+
+    plan = topk_plan(m, d)
+    rec = {**dataclasses.asdict(plan), "threads": plan.threads,
+           "ctas": plan.ctas}
+    if plan.route == "sharded":
+        _, rec["keep"], rec["smem_bytes"] = sharded_layout(d, plan.cluster)
+    return rec
+
+
+def topk_launcher(x, k: int, cluster: int):
+    """A call of the cluster kernel on x through its C entry, at another
+    cluster size than the plan's."""
+    import torch
+
+    from repro_torch.kernels import _build
+
+    m, d = x.shape
+
+    def run():
+        vals = torch.empty(m, k, device=x.device)
+        idx = torch.empty(m, k, dtype=torch.int32, device=x.device)
+        _build.launch("topk_sharded", x.data_ptr(), vals.data_ptr(),
+                      idx.data_ptr(), m, d, k, cluster,
+                      torch.cuda.current_stream().cuda_stream)
+        return vals, idx
+    return run
+
+
+def topk_sweep(x, k: int) -> dict:
+    """Kernel device ms of the cluster kernel at x's shape at every cluster
+    size (each keeping what its slice may in shared memory), each held
+    against the plain version first; ``{}`` at the single tile's widths,
+    whose launch has no parameter."""
+    import torch
+
+    from repro_torch.kernels import kernel_plan, topk_compress_plain
+    from repro_torch.kernels.topk_compress import TOPK_CLUSTER_SIZES
+
+    m, d = x.shape
+    if kernel_plan(d) == "single_tile":
+        return {}
+    pv, pi = topk_compress_plain(x, k)
+    out = {}
+    for c in TOPK_CLUSTER_SIZES:
+        label, run = f"c{c}", topk_launcher(x, k, c)
+        v, i = run()
+        check(torch.equal(i, pi) and torch.equal(v.view(torch.int32),
+                                                 pv.view(torch.int32)),
+              ("top-k sweep vs plain", m, d, k, label))
+        out[label] = kernel_device_ms(run, 30, "topk_cluster_kernel")
+    return out
+
+
+def time_topk() -> dict:
+    """The top-k calls of :data:`TOPK_TIMED` on normal rows: CUDA-event ms
+    a call (``ms``, host launch overhead included), the profiler's device
+    span of a call from its first kernel's start to its last one's end
+    (``device_span_ms``) and its kernels' own time (``device_ms``), the
+    device events a call runs (one: the kernel), ``torch.topk`` of |x|
+    (``library_ms``; ``library_device_ms`` its kernels, ``library_span_ms``
+    its span), the plain version, the bound (x read once and the payload
+    written once at 3.35 TB/s; the select's compares at 67 TFLOP/s), the
+    plan, and the cluster kernel at other cluster sizes
+    (:func:`topk_sweep`)."""
+    import torch
+
+    from repro_torch.kernels import (
+        LAUNCHES,
+        kernel_plan,
+        topk_compress,
+        topk_compress_plain,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    out = {}
+    for m, d, k in TOPK_TIMED:
+        x = torch.randn(m, d, generator=gen, device="cuda")
+        name = ("topk_compress" if kernel_plan(d) == "single_tile"
+                else "topk_sharded")
+
+        def call():
+            return topk_compress(x, k)
+
+        def lib():
+            return torch.topk(x.abs(), k, dim=1)
+
+        before = LAUNCHES[name]
+        call()
+        check(LAUNCHES[name] == before + 1, (name, "one launch a call", m, d))
+        span = device_span_ms(call, 30)
+        check(span["events"] == 1, (name, "one device event a call", m, d,
+                                    span))
+        lib_span = device_span_ms(lib, 30)
+        bound, by = bound_ms(4 * m * d + 8 * m * k,
+                             (32 if name == "topk_compress" else 5) * m * d)
+        out[f"{m}x{d}"] = {
+            "name": name, "shape": [m, d], "k": k,
+            "ms": cuda_ms(call, 200), "device_span_ms": span["span_ms"],
+            "device_ms": span["kernel_ms"], "events": span["events"],
+            "plain_ms": cuda_ms(lambda: topk_compress_plain(x, k), 20),
+            "library_ms": cuda_ms(lib, 200),
+            "library_device_ms": library_device_ms(lib, 100),
+            "library_span_ms": lib_span["span_ms"],
+            "bound_ms": bound, "bound_by": by,
+            "plan": topk_plan_record(m, d),
+            "device_ms_by_plan": topk_sweep(x, k)}
+        del x
+        torch.cuda.empty_cache()
+    log(f"top-k calls timed (ms): {json.dumps(out)}")
+    return out
+
+
 def time_sparse_center(vals, idx, keep, d: int, reps: int = 200) -> dict:
     """The sparse center's kernel over one round's payloads, summed with
     the norm_trim keep as weights: its call (events), its device time
@@ -1373,13 +1646,11 @@ def time_gisette_kernels(inp: dict, launches: dict, w8a_payload) -> list:
     s, k, vals, idx, keep = (inp[n] for n in ("s", "k", "vals", "idx",
                                                 "keep"))
     m, d = s.shape
-    passes = ("hist_kernel", "select_kernel", "count_kernel", "pack_kernel",
-              "Memset")
     topk_ms = cuda_ms(lambda: topk_compress_sharded(s, k), reps=200)
     topk_plain_ms = cuda_ms(lambda: topk_compress_plain(s, k), reps=50)
     topk_lib_ms = cuda_ms(lambda: torch.topk(s.abs(), k, dim=1), reps=200)
-    topk_dev = device_ms_by_name(lambda: topk_compress_sharded(s, k), 200,
-                                 passes)
+    topk_dev = kernel_device_ms(lambda: topk_compress_sharded(s, k), 200,
+                                "topk_cluster_kernel")
     topk_lib_dev = library_device_ms(lambda: torch.topk(s.abs(), k, dim=1),
                                      200)
     # x read once and the payload written once; per coordinate three
@@ -1388,7 +1659,7 @@ def time_gisette_kernels(inp: dict, launches: dict, w8a_payload) -> list:
     agg = time_sparse_center(vals, idx, keep, d)
     agg_w8a = time_sparse_center(*w8a_payload)
     log(f"topk_compress_sharded at ({m}, {d}), k = {k}: {topk_ms:.4f} ms a "
-        f"call, device by pass {topk_dev}, plain {topk_plain_ms:.4f} ms, "
+        f"call, {topk_dev} ms on the device, plain {topk_plain_ms:.4f} ms, "
         f"torch.topk {topk_lib_ms:.4f} ms ({topk_lib_dev} ms device), "
         f"bound {topk_bound:.7f} ms; "
         f"the sparse center (ms; drive A, then w8a): {json.dumps(agg)}; "
@@ -1404,9 +1675,8 @@ def time_gisette_kernels(inp: dict, launches: dict, w8a_payload) -> list:
          "plain_ms": topk_plain_ms, "bound_ms": topk_bound,
          "bound_by": topk_by, "library_ms": topk_lib_ms,
          "library_device_ms": topk_lib_dev,
-         "device_ms": sum(v for key, v in topk_dev.items()
-                          if key in passes[:4] and v is not None),
-         "device_ms_by_pass": topk_dev, "shape": [m, d], "k": k},
+         "device_ms": topk_dev, "shape": [m, d], "k": k,
+         "plan": topk_plan_record(m, d)},
         {"name": "sparse_agg", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/sparse_agg.cu",
          "replaces": "src/repro/kernels/robust_agg.py:245",
@@ -2073,6 +2343,11 @@ def main() -> int:
                       at_d10000=wide)
     kernels += time_gisette_kernels(ginp, first, w8a_payload)
     kernels[-1]["f1"] = f1
+    topk = time_topk()
+    for rec in kernels:
+        if rec["name"] in ("topk_compress", "topk_sharded"):
+            rec["timed"] = {key: t for key, t in topk.items()
+                            if t["name"] == rec["name"]}
     kernels += time_model_kernels(model_inp, first)
     round_breakdown(DRIVE_A, label="gisette (d = 5000) sparse-center")
     round_breakdown()

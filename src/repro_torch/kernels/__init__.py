@@ -4,9 +4,10 @@ version beside it in the same module:
 * :mod:`.cubic_step` -- the batched Algorithm-2 solve, a thread block
   cluster a worker at any d (``csrc/cubic_solve.cu``), replacing the
   reference's Pallas ``cubic_step``;
-* :mod:`.topk_compress` -- the batched top-|x| wire payload: one CTA per
-  row up to d = 1408 (``csrc/topk_compress.cu``) and a grid of row × block
-  CTAs beyond (``csrc/topk_sharded.cu``), replacing the reference's Pallas
+* :mod:`.topk_compress` -- the batched top-|x| wire payload, one launch a
+  call (:func:`topk_plan`): one warp per row up to d = 1408
+  (``csrc/topk_compress.cu``) and a thread block cluster per row beyond
+  (``csrc/topk_sharded.cu``), replacing the reference's Pallas
   ``topk_compress_tiled`` and ``topk_compress_sharded``;
 * :mod:`.robust_agg` -- krum's scores (``csrc/krum_scores.cu``, tiled pair
   distances split over d, :func:`krum_plan`) and the per-coordinate worker
@@ -61,11 +62,13 @@ from .robust_agg import (
 )
 from .topk_compress import (
     SINGLE_TILE_MAX_D,
+    TopkPlan,
     kernel_plan,
     topk_compress,
     topk_compress_plain,
     topk_compress_sharded,
     topk_decompress,
+    topk_plan,
 )
 
 __all__ = [
@@ -77,6 +80,7 @@ __all__ = [
     "SORT_MAX_M",
     "SPARSE_SCATTER_MAX_D",
     "SortPlan",
+    "TopkPlan",
     "agg_kernel_plan",
     "aggregate_sparse",
     "aggregate_sparse_gridded",
@@ -107,5 +111,6 @@ __all__ = [
     "topk_compress_plain",
     "topk_compress_sharded",
     "topk_decompress",
+    "topk_plan",
     "trimmed_mean_fused",
 ]

@@ -13,7 +13,11 @@ Nothing here runs at import: the CPU tests import every module, and
 :data:`LAUNCHES` counts the launches of each kernel: :func:`launch` adds one
 after each successful launch, and only the kernel wrappers call it.
 :func:`query` calls a source's other C functions, which launch nothing (the
-cubic solve's launch plan), and counts nothing.
+cubic solve's launch plan, the cluster top-k's shared-memory layout), and
+counts nothing.
+
+:data:`SMS` and :data:`SMEM_PER_BLOCK` are the facts of the card the build
+targets that the kernels' plain-Python launch plans read.
 """
 from __future__ import annotations
 
@@ -29,6 +33,10 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
+#: the card's streaming multiprocessors (an H100 SXM's 132)
+SMS = 132
+#: shared memory a block may hold on the card (227 KB)
+SMEM_PER_BLOCK = 232448
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -44,7 +52,7 @@ ENTRY_POINTS = {
                     [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "sort_workers": ("sort_workers_launch", [_P, _P, _I, _I, _I, _P]),
     "topk_sharded": ("topk_sharded_launch",
-                     [_P, _P, _P, _P, _I, _I, _I, _P]),
+                     [_P, _P, _P, _I, _I, _I, _I, _P]),
     "sparse_agg": ("sparse_agg_launch", [_P, _P, _P, _P, _I, _I, _I, _P]),
     "rmsnorm": ("rmsnorm_launch", [_P, _P, _P, _I, _I, _F, _I, _I, _I, _P]),
     "flash_attention": ("flash_attention_launch",
@@ -55,6 +63,7 @@ ENTRY_POINTS = {
 #: argtypes).  Each returns a cudaError_t as an int.
 QUERIES = {
     "cubic_solve_plan": ("cubic_solve", [_I, _I, _P]),
+    "topk_sharded_plan": ("topk_sharded", [_I, _I, _P]),
 }
 
 _lock = threading.Lock()

@@ -1,144 +1,140 @@
-// Batched top-|x| compression for Hopper (sm_90a): one CTA per sender row.
+// Batched top-|x| compression for Hopper (sm_90a), d <= 1408: one warp per
+// sender row, several rows a CTA, no block barrier.
 //
 // Replaces the TPU kernel src/repro/kernels/topk_compress.py::topk_compress_tiled
 // (_topk_kernel), the single-tile launch for d <= 1408.  Contract:
 // src/repro/kernels/ref.py::topk_compress_ref, bit for bit -- the k largest
 // |x| in ascending index order, ties at the threshold magnitude filled
-// lowest index first (lax.top_k's rule).
+// lowest index first (lax.top_k's rule), values with their sign, -0.0 tied
+// with +0.0.
 //
 // What bounds it here: nothing the card is short of.  A w8a round moves
 // 20 x 300 floats in and 20 x 30 (value, index) pairs out (about 29 KB), so
-// the time is launch latency plus the serial dependency chain of the select:
-// 31 block-wide counts, each a warp-shuffle reduction and two barriers.
+// the time is launch latency plus the dependency chain of the select.  The
+// design keeps that chain inside one warp: no shared-memory round trip and
+// no __syncthreads anywhere.
 //
-// Design: the TPU kernel's 64-step float bisection is exact only for
-// distinct magnitudes, so it is not copied.  Instead the exact bit pattern p
-// of the k-th largest |x| is selected bit by bit over the 31 magnitude bits
-// of the int32 patterns (non-negative floats order like their patterns):
-// p is the largest value with count(pattern >= p) >= k.  Every coordinate
-// above p is kept; the k - n_sure remaining slots go to the ties
-// (pattern == p), lowest index first.  Each thread owns a contiguous chunk
-// of coordinates, so block-wide exclusive prefix sums over the per-thread
-// sure/tie counts give every survivor its output slot in index order.  The
-// row's patterns stay in shared memory; nothing else is staged.
+// Design.  Non-negative floats order like their int32 patterns, so the
+// exact pattern p of a row's k-th largest |x| is the largest value with
+// count(pattern >= p) >= k.  Lane l of the row's warp holds the patterns of
+// coordinates l, l + 32, ... in registers (at most 44 at d = 1408; the
+// template NPER is the next size up) and their sign bits in one 64-bit
+// word.  The select finds p bit by bit over the 31 magnitude bits, each
+// count one pass over the lane's registers and one __reduce_add_sync
+// (redux.sync).  (Four 8-bit digit rounds through a per-warp shared
+// histogram measured slower on the card; PERF.md §6.)  Then the pack,
+// one step per 32 coordinates: __ballot_sync of "above p" and of "equal to
+// p", and __popc of each mask below the lane give every survivor its slot,
+// sure_before + min(ties_before, k - n_sure): ownership is strided, so
+// index order falls out of the ballots directly.  Nothing depends on k at
+// build time.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr int kMaxD = 1408;  // SINGLE_TILE_MAX_D, the dispatcher's bound
+constexpr int kWarps = 4;    // rows a CTA (TOPK_WARPS in topk_compress.py)
+constexpr unsigned kFull = 0xffffffffu;
+constexpr unsigned kMag = 0x7fffffffu;
 
-__device__ __forceinline__ int warp_sum(int v) {
+// Patterns are >= 0; a coordinate past d holds -1, which no count, sure
+// test or tie test matches (every candidate and p are >= 0).
+template <int NPER>
+__device__ __forceinline__ int count_ge(const int (&pat)[NPER], int cand) {
+  int c = 0;
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+  for (int j = 0; j < NPER; ++j) c += pat[j] >= cand;
+  return c;
 }
 
-__device__ __forceinline__ int warp_inclusive_scan(int v, int lane) {
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    int t = __shfl_up_sync(0xffffffffu, v, o);
-    if (lane >= o) v += t;
+template <int NPER>
+__device__ __forceinline__ int select_bits(const int (&pat)[NPER], int k) {
+  int p = 0;
+#pragma unroll 1
+  for (int b = 30; b >= 0; --b) {
+    const int cand = p | (1 << b);
+    if (__reduce_add_sync(kFull, count_ge(pat, cand)) >= k) p = cand;
   }
-  return v;
+  return p;
 }
 
-// Block-wide sum of one int per thread, returned to every thread.
-__device__ int block_sum(int v, int* red) {
+template <int NPER>
+__global__ void __launch_bounds__(kWarps * 32)
+topk_warp_kernel(const float* __restrict__ x, float* __restrict__ vals,
+                 int32_t* __restrict__ idx, int m, int d, int k) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  v = warp_sum(v);
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    int t = lane < kWarps ? red[lane] : 0;
-    t = warp_sum(t);
-    if (lane == 0) red[kWarps] = t;
-  }
-  __syncthreads();
-  const int total = red[kWarps];
-  __syncthreads();  // red is reused by the next call
-  return total;
-}
-
-// Block-wide exclusive prefix sum in thread order; *total gets the sum.
-__device__ int block_exclusive_scan(int v, int* red, int* total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int inc = warp_inclusive_scan(v, lane);
-  if (lane == 31) red[warp] = inc;
-  __syncthreads();
-  if (warp == 0) {
-    int t = lane < kWarps ? red[lane] : 0;
-    const int tinc = warp_inclusive_scan(t, lane);
-    if (lane < kWarps) red[lane] = tinc - t;  // exclusive warp offsets
-    if (lane == kWarps - 1) red[kWarps] = tinc;
-  }
-  __syncthreads();
-  const int out = red[warp] + inc - v;
-  *total = red[kWarps];
-  __syncthreads();
-  return out;
-}
-
-__global__ void __launch_bounds__(kThreads)
-topk_compress_kernel(const float* __restrict__ x, float* __restrict__ vals,
-                     int32_t* __restrict__ idx, int d, int k) {
-  __shared__ uint32_t pat[kMaxD];
-  __shared__ int red[kWarps + 1];
-
-  const int row = blockIdx.x;
+  const int row = blockIdx.x * kWarps + warp;
+  if (row >= m) return;  // the whole warp leaves: no barrier waits for it
   const float* xr = x + (size_t)row * d;
   float* vr = vals + (size_t)row * k;
   int32_t* ir = idx + (size_t)row * k;
 
-  // contiguous ownership: thread t holds coordinates [lo, hi)
-  const int chunk = (d + kThreads - 1) / kThreads;
-  const int lo = min(d, (int)threadIdx.x * chunk);
-  const int hi = min(d, lo + chunk);
-  for (int i = lo; i < hi; ++i) pat[i] = __float_as_uint(xr[i]) & 0x7fffffffu;
-
-  // exact k-th largest magnitude pattern, one bit at a time (MSB first)
-  uint32_t p = 0;
-  for (int b = 30; b >= 0; --b) {
-    const uint32_t cand = p | (1u << b);
-    int c = 0;
-    for (int i = lo; i < hi; ++i) c += pat[i] >= cand;
-    if (block_sum(c, red) >= k) p = cand;
+  int pat[NPER];
+  uint64_t signs = 0;
+#pragma unroll
+  for (int j = 0; j < NPER; ++j) {
+    const int i = 32 * j + lane;
+    const unsigned u = i < d ? __float_as_uint(__ldg(xr + i)) : 0u;
+    pat[j] = i < d ? (int)(u & kMag) : -1;
+    signs |= (uint64_t)(u >> 31) << j;
   }
 
-  int n_sure_t = 0, n_tie_t = 0;
-  for (int i = lo; i < hi; ++i) {
-    n_sure_t += pat[i] > p;
-    n_tie_t += pat[i] == p;
-  }
-  int n_sure, n_tie;
-  const int sure_before = block_exclusive_scan(n_sure_t, red, &n_sure);
-  const int tie_before = block_exclusive_scan(n_tie_t, red, &n_tie);
-  const int budget = k - n_sure;  // tie slots, filled lowest index first
+  const int p = select_bits(pat, k);
+  int n_sure = 0;
+#pragma unroll
+  for (int j = 0; j < NPER; ++j) n_sure += pat[j] > p;
+  const int budget = k - __reduce_add_sync(kFull, n_sure);  // tie slots
 
-  int slot = sure_before + min(tie_before, budget);
-  int tie_rank = tie_before;
-  for (int i = lo; i < hi; ++i) {
-    const uint32_t q = pat[i];
-    bool keep = q > p;
-    if (q == p) keep = tie_rank++ < budget;
-    if (keep) {
-      vr[slot] = xr[i];
-      ir[slot] = i;
-      ++slot;
+  const unsigned below = (1u << lane) - 1u;
+  int sure_before = 0, tie_before = 0;
+#pragma unroll
+  for (int j = 0; j < NPER; ++j) {
+    const int q = pat[j];
+    const bool sure = q > p, tie = q == p;
+    const unsigned ms = __ballot_sync(kFull, sure);
+    const unsigned mt = __ballot_sync(kFull, tie);
+    const int tie_rank = tie_before + __popc(mt & below);
+    if (sure || (tie && tie_rank < budget)) {
+      const int slot =
+          sure_before + __popc(ms & below) + min(tie_rank, budget);
+      vr[slot] = __uint_as_float((unsigned)q |
+                                 ((unsigned)(signs >> j) & 1u) << 31);
+      ir[slot] = 32 * j + lane;
     }
+    sure_before += __popc(ms);
+    tie_before += __popc(mt);
+    if (sure_before + min(tie_before, budget) >= k) break;  // warp-uniform
   }
 }
 
 }  // namespace
 
+// x (m, d) float32, vals (m, k) float32, idx (m, k) int32.
 extern "C" int topk_compress_launch(const float* x, float* vals, int32_t* idx,
                                     int m, int d, int k, void* stream) {
-  if (m > 0) {
-    topk_compress_kernel<<<m, kThreads, 0, (cudaStream_t)stream>>>(x, vals, idx,
-                                                                    d, k);
+  if (m <= 0) return (int)cudaGetLastError();
+  if (d < 1 || d > kMaxD || k < 1 || k > d) {
+    return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+  const dim3 grid((m + kWarps - 1) / kWarps), block(32 * kWarps);
+  cudaStream_t s = (cudaStream_t)stream;
+  const int nper = (d + 31) / 32;
+#define TOPK_WARP_CASE(N)                                                 \
+  if (nper <= N) {                                                        \
+    topk_warp_kernel<N><<<grid, block, 0, s>>>(x, vals, idx, m, d, k);    \
+    return (int)cudaGetLastError();                                       \
+  }
+  TOPK_WARP_CASE(1)
+  TOPK_WARP_CASE(2)
+  TOPK_WARP_CASE(4)
+  TOPK_WARP_CASE(8)
+  TOPK_WARP_CASE(12)
+  TOPK_WARP_CASE(16)
+  TOPK_WARP_CASE(24)
+  TOPK_WARP_CASE(32)
+  TOPK_WARP_CASE(44)
+#undef TOPK_WARP_CASE
+  return (int)cudaErrorInvalidValue;
 }

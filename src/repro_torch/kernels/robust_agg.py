@@ -41,14 +41,11 @@ from dataclasses import dataclass
 import torch
 
 from . import _build
+from ._build import SMEM_PER_BLOCK, SMS
 
 SPARSE_SCATTER_MAX_D = 4096
 # krum_select's diagonal: the self-distance never counts as a neighbour
 _BIG = 1e30
-#: the card's streaming multiprocessors (an H100 SXM's 132)
-SMS = 132
-#: shared memory a block may hold on the card (227 KB)
-SMEM_PER_BLOCK = 232448
 #: the largest m each kernel serves on the card: a column (sort) or a row
 #: of d2 (krum) of 16384 keys and values fills 192 KB of shared memory
 SORT_MAX_M = 16384

@@ -29,6 +29,7 @@ from repro_torch.kernels import (
     topk_compress_plain,
     topk_compress_sharded,
 )
+from repro_torch.kernels._build import SMEM_PER_BLOCK
 from repro_torch.kernels.robust_agg import _krum_launch
 
 pytestmark = pytest.mark.gpu
@@ -41,18 +42,110 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("d,k", [(1, 1), (40, 4), (300, 30), (1408, 140)])
-def test_topk_kernel_equals_plain(cuda, d, k):
-    gen = torch.Generator(device=cuda).manual_seed(d)
-    before = LAUNCHES["topk_compress"]
-    for x in (torch.randn(20, d, generator=gen, device=cuda),
-              torch.randint(-3, 4, (20, d), generator=gen,
-                            device=cuda).float(),
-              torch.zeros(20, d, device=cuda)):
-        v, i = topk_compress(x, k)
-        pv, pi = topk_compress_plain(x, k)
-        assert torch.equal(v, pv) and torch.equal(i, pi)
-    assert LAUNCHES["topk_compress"] == before + 3
+def _edge_stacks(m, d, device, seed):
+    """Rows that stress the top-k contract: normal, rounded to halves and
+    small integers (ties), zeros, ±0.0 mixed with values, ±inf among
+    values, subnormals only, and rows of one magnitude with mixed signs."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.rand(*shape, generator=gen, device=device)
+
+    normal = torch.randn(m, d, generator=gen, device=device)
+    signs = torch.where(rand(m, d) < 0.5, -1.0, 1.0)
+    pm_zero = torch.where(rand(m, d) < 0.6, 0.0, normal) * signs
+    u = rand(m, d)
+    pm_inf = torch.where(u < 0.05, float("inf"),
+                         torch.where(u < 0.1, float("-inf"), normal))
+    return {"normal": normal, "halves": torch.round(normal * 2) / 2,
+            "ints": torch.randint(-3, 4, (m, d), generator=gen,
+                                  device=device).float(),
+            "zeros": torch.zeros(m, d, device=device), "pm_zero": pm_zero,
+            "pm_inf": pm_inf, "subnormal": normal * 1e-39,
+            "equal": signs * 0.75}
+
+
+def _hold_topk(fn, stacks, ks, counter):
+    """Each stack through ``fn`` at each k, bit for bit the plain version,
+    one launch of ``counter`` a call."""
+    for name, x in stacks.items():
+        for k in ks:
+            before = LAUNCHES[counter]
+            v, i = fn(x, k)
+            assert LAUNCHES[counter] == before + 1, (name, k)
+            pv, pi = topk_compress_plain(x, k)
+            assert torch.equal(i, pi), (name, k)
+            assert torch.equal(v.view(torch.int32), pv.view(torch.int32)), (
+                name, k)
+
+
+@pytest.mark.parametrize("m,d", [(20, 1), (20, 40), (20, 300), (1000, 300),
+                                 (3, 1408), (20, 1408)])
+def test_topk_kernel_equals_plain(cuda, m, d):
+    """Values (their bits) and indices, over the edge stacks, at k = 1,
+    d / 10 and d; one launch a call."""
+    ks = sorted({1, max(1, d // 10), d})
+    _hold_topk(topk_compress, _edge_stacks(m, d, cuda, d), ks,
+               "topk_compress")
+
+
+def _device_events(fn):
+    """The kernels, memsets and copies one call of ``fn`` runs (the trace's
+    events, with their ``name`` and ``args``: grid, block, shared memory),
+    from a profiler trace: the call runs in a ``record_function`` range
+    after three calls outside it (a trace may miss its first calls' device
+    events), each followed by a synchronise and 2 ms of sleep, and the
+    device events that start after the range's start (less 1 ms of clock
+    skew) are the call's."""
+    import json
+    import tempfile
+    import time
+    from pathlib import Path
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(4):
+            if i == 3:
+                with record_function("topk_one_call"):
+                    fn()
+            else:
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(0.002)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        trace = json.loads(path.read_text())["traceEvents"]
+    start = next(float(e["ts"]) for e in trace
+                 if e.get("name") == "topk_one_call"
+                 and e.get("cat") == "user_annotation")
+    return [e for e in trace if e.get("ph") == "X"
+            and e.get("cat") in ("kernel", "gpu_memset", "gpu_memcpy")
+            and float(e["ts"]) + 1000 >= start]
+
+
+@pytest.mark.parametrize("m,d,k,name", [(20, 300, 30, "topk_warp_kernel"),
+                                        (20, 5000, 500,
+                                         "topk_cluster_kernel")])
+def test_topk_call_is_one_kernel(cuda, m, d, k, name):
+    """At the w8a and drive A shapes a call runs one kernel and nothing
+    else (no memset, no copy), laid out as :func:`topk_plan` says: its CTAs
+    and threads, and for the cluster kernel the shared memory
+    :func:`sharded_layout` reads from the source."""
+    from repro_torch.kernels import topk_plan
+    from repro_torch.kernels.topk_compress import sharded_layout
+
+    x = torch.randn(m, d, device=cuda)
+    events = _device_events(lambda: topk_compress(x, k))
+    assert len(events) == 1 and name in events[0]["name"], events
+    plan, args = topk_plan(m, d), events[0]["args"]
+    assert args["grid"] == [plan.ctas, 1, 1], args
+    assert args["block"] == [plan.threads, 1, 1], args
+    if plan.route == "sharded":
+        smem = sharded_layout(d, plan.cluster)[2]
+        assert args["shared memory"] == smem, args
 
 
 def _cubic_case(m, d, device, seed):
@@ -233,6 +326,54 @@ def test_topk_sharded_kernel_equals_plain(cuda, m, d, k):
     if d > 1408:          # the dispatcher takes the sharded launch
         topk_compress(normal, k)
         assert LAUNCHES["topk_sharded"] == before + 4
+
+
+@pytest.mark.parametrize("m,d", [(1, 1409), (20, 1409), (4, 4099),
+                                 (20, 5000), (3, 65537), (1, 131072)])
+def test_topk_sharded_kernel_edge_stacks(cuda, m, d):
+    """The cluster kernel over the edge stacks at k = 1, d / 10 and d, one
+    launch a call, through the dispatcher; (1, 131072) takes a cluster of
+    8 CTAs (the cluster of 16 is held at (2, 1,000,000) below)."""
+    ks = sorted({1, d // 10, d})
+    _hold_topk(topk_compress, _edge_stacks(m, d, cuda, d), ks,
+               "topk_sharded")
+
+
+def test_topk_sharded_kernel_streams_past_shared_memory(cuda):
+    """A row of 1,000,000: a cluster of 16 CTAs (the non-portable size),
+    each keeping 49820 of its 62500 coordinates in shared memory and
+    re-reading the rest from L2."""
+    from repro_torch.kernels import topk_plan
+    from repro_torch.kernels.topk_compress import sharded_layout
+
+    plan = topk_plan(2, 1_000_000)
+    slice_, keep, _ = sharded_layout(plan.d, plan.cluster)
+    assert plan.cluster == 16 and slice_ == plan.slice > keep
+    _hold_topk(topk_compress, _edge_stacks(2, 1_000_000, cuda, 9),
+               (1, 100_000), "topk_sharded")
+
+
+@pytest.mark.parametrize("m,d", [(20, 1409), (20, 5000), (2, 65536),
+                                 (1, 16384), (1, 131072), (64, 65536),
+                                 (1, 49152), (1, 1_000_000), (20, 10**8)])
+def test_topk_sharded_layout_holds_the_plans_slices(cuda, m, d):
+    """The source's layout at the plan's cluster (read by query, nothing
+    launched): the plan's slice, within the card's per-block shared memory,
+    and held whole wherever the plan takes it to be
+    (``slice <= TOPK_SLICE_WHOLE``)."""
+    from repro_torch.kernels import topk_plan
+    from repro_torch.kernels.topk_compress import (
+        TOPK_SLICE_WHOLE,
+        sharded_layout,
+    )
+
+    plan = topk_plan(m, d)
+    before = dict(LAUNCHES)
+    slice_, keep, smem = sharded_layout(d, plan.cluster)
+    assert LAUNCHES == before
+    assert slice_ == plan.slice and 0 < keep <= slice_
+    assert smem <= SMEM_PER_BLOCK and smem % 16 == 0 and keep % 4 == 0
+    assert keep == slice_ or plan.slice > TOPK_SLICE_WHOLE
 
 
 @pytest.mark.parametrize("m,k,d,dup", [(20, 500, 5000, False),

@@ -100,3 +100,38 @@ def test_topk_dispatcher_raises_past_the_single_tile_bound():
         topk_compress(torch.zeros(10), 11)
     with pytest.raises(TypeError):
         topk_compress(torch.zeros(10, dtype=torch.float64), 1)
+
+
+def _edge_row(kind, d, seed):
+    """Rows that stress the contract: ±0.0 mixed with values, ±inf among
+    values, subnormals only, one magnitude with mixed signs."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(d)
+    signs = np.where(rng.random(d) < 0.5, -1.0, 1.0)
+    if kind == "pm_zero":
+        x = np.where(rng.random(d) < 0.6, 0.0, x) * signs
+    elif kind == "pm_inf":
+        u = rng.random(d)
+        x = np.where(u < 0.05, np.inf, np.where(u < 0.1, -np.inf, x))
+    elif kind == "subnormal":
+        return (x.astype(np.float32) * np.float32(1e-39)).astype(np.float32)
+    else:                            # "equal"
+        x = signs * 0.75
+    return x.astype(np.float32)
+
+
+@pytest.mark.parametrize("kind", ["pm_zero", "pm_inf", "subnormal", "equal"])
+@pytest.mark.parametrize("d", [1, 300, SINGLE_TILE_MAX_D,
+                               SINGLE_TILE_MAX_D + 1, 5000])
+def test_edge_rows_match_the_reference_oracle(kind, d):
+    """The plain version, which both kernels are held against on the card,
+    equals the reference's oracle bit for bit on the edge rows the card
+    checks (``chip_smoke.py``'s edge stacks), at k = 1, d / 10 and d; -0.0
+    keeps its sign."""
+    x = _edge_row(kind, d, d)
+    for k in sorted({1, max(1, d // 10), d}):
+        ov, oi = topk_compress_ref(jnp.asarray(x), k)
+        pv, pi = topk_compress(torch.from_numpy(x), k)
+        np.testing.assert_array_equal(pi.numpy(), np.asarray(oi))
+        np.testing.assert_array_equal(pv.numpy().view(np.int32),
+                                      np.asarray(ov).view(np.int32))
