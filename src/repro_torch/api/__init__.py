@@ -21,6 +21,7 @@ from .problems import (
     PROBLEM_SPECS,
     Problem,
     accuracy,
+    factor_loss,
     fixed_workers,
     logistic_loss,
     make_problem,
@@ -40,6 +41,7 @@ __all__ = [
     "SpecError",
     "accuracy",
     "default_aggregator_spec",
+    "factor_loss",
     "fixed_workers",
     "logistic_loss",
     "make_aggregator",

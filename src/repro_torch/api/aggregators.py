@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import torch
 
+from .._device import div_exact
 from ..core import aggregation as _agg
 from ..kernels import (
     aggregate_sparse,
@@ -87,7 +88,7 @@ class Mean(Aggregator):
 
     def sparse(self, vals, idx, d):
         m = vals.shape[0]
-        agg = aggregate_sparse(vals, idx, d) / m
+        agg = div_exact(aggregate_sparse(vals, idx, d), m)
         return agg, torch.ones(m, dtype=agg.dtype, device=agg.device)
 
     def check_resilience(self, alpha, m):
@@ -121,7 +122,7 @@ class NormTrim(Aggregator):
         v32 = vals.to(torch.float32)
         keep, n_keep = _agg.norm_trim_keep(
             torch.linalg.vector_norm(v32, dim=1), self.beta)
-        agg = aggregate_sparse(v32, idx, d, weights=keep) / n_keep
+        agg = div_exact(aggregate_sparse(v32, idx, d, weights=keep), n_keep)
         return agg, keep.to(vals.dtype)
 
     def check_resilience(self, alpha, m):

@@ -6,9 +6,12 @@ The port of the reference's ``api/problems.py`` for the paper runtime:
     "a9a-robust"   / "w8a-robust"        paper §6 robust regression
     "synthetic-logistic:<n>:<d>"         separable classification twin
     "synthetic-regression:<n>:<d>"       heavy-tailed robust regression
+    "matrix-factor:<d>:<r>"              low-rank factorization with a
+                                         strict saddle at U = 0 (the
+                                         saddle-escape testbed)
 
-``matrix-factor`` and the mesh-only ``quadratic`` problem belong to later
-slices and raise :class:`NotImplementedError`.  The data are twins drawn
+The mesh-only ``quadratic`` problem belongs to a later slice and raises
+:class:`NotImplementedError`.  The data are twins drawn
 from a seeded ``torch.Generator`` on the problem's device;
 :meth:`Problem.from_numpy` takes arrays made elsewhere (the reference's,
 in the tests).
@@ -21,7 +24,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from .._device import resolve_device
+from .._device import div_exact, exact_divisor, resolve_device
 from ..configs import PAPER_WORKLOADS
 from ..data import (
     make_classification,
@@ -33,9 +36,11 @@ from .errors import SpecError, not_ported
 
 PROBLEM_SPECS = tuple(PAPER_WORKLOADS) + (
     "synthetic-logistic:<n>:<d>", "synthetic-regression:<n>:<d>",
+    "matrix-factor:<d>:<r>",
 )
-_LATER = {"matrix-factor": "Queue 1b item B5",
-          "quadratic": "Queue 1 item 13 (mesh runtime)"}
+_LATER = {"quadratic": "Queue 1 item 13 (mesh runtime)"}
+#: rows a worker holds in a matrix-factor problem (the reference's n)
+FACTOR_ROWS = 400
 
 
 # ---------------------------------------------------------------- losses
@@ -55,6 +60,18 @@ def robust_regression_loss(w, X, y):
     return torch.mean(torch.log(r * r / 2.0 + 1.0))
 
 
+def factor_loss(w, X, y):
+    """¼‖UUᵀ − Σ‖²_F with w = flat U (d·r) and Σ = XᵀX/n; the labels are
+    unused.  Strict saddle at U = 0."""
+    del y
+    n, d = X.shape
+    r = w.shape[0] // d
+    U = w.reshape(d, r)
+    Sigma = div_exact(X.T @ X, n)
+    R = U @ U.T - Sigma
+    return 0.25 * torch.sum(R * R)
+
+
 # ------------------------------------------------- closed-form Hessians
 # Both catalog losses are GLMs, f(w) = mean_j φ(x_jᵀw) (+ a ridge term), so
 # each worker's Hessian is Xᵀ·diag(φ''(z))·X / n: one batched product over
@@ -66,7 +83,7 @@ def _glm_hessians(X, curvature):
     division is in place, so the (m, d, d) result is the only large
     allocation."""
     H = torch.bmm(X.transpose(1, 2) * curvature[:, None, :], X)
-    return H.div_(X.shape[1])
+    return H.div_(exact_divisor(X.shape[1], H))
 
 
 def logistic_hessians(X, y, w):
@@ -96,7 +113,9 @@ def accuracy(w, X, y):
     return float(((X @ w > 0) == (y > 0.5)).to(torch.float32).mean())
 
 
-_LOSSES = {"logistic": logistic_loss, "robust_regression": robust_regression_loss}
+_LOSSES = {"logistic": logistic_loss,
+           "robust_regression": robust_regression_loss,
+           "matrix_factor": factor_loss}
 
 
 # ---------------------------------------------------------------- catalog
@@ -105,7 +124,7 @@ class Problem:
     """Materialized problem: loss + worker-sharded data + metadata."""
 
     spec: str
-    kind: str                 # "logistic" | "robust_regression"
+    kind: str                 # "logistic" | "robust_regression" | ...
     loss_fn: Callable
     dim: int
     m_workers: int
@@ -117,7 +136,7 @@ class Problem:
     X_test: Optional[torch.Tensor] = None
     y_test: Optional[torch.Tensor] = None
     w_star: Optional[torch.Tensor] = None
-    saddle_value: Optional[float] = None
+    saddle_value: Optional[float] = None   # matrix-factor only
 
     @property
     def device(self) -> torch.device:
@@ -130,6 +149,13 @@ class Problem:
             return lambda w: accuracy(w, self.X_test, self.y_test)
         return None
 
+    def accuracy(self, w) -> float:
+        """Accuracy of w on the test split, or on the training data where
+        the problem has none."""
+        X = self.X_test if self.X_test is not None else self.X_full
+        y = self.y_test if self.y_test is not None else self.y_full
+        return accuracy(w, X, y)
+
     @classmethod
     def from_numpy(cls, spec: str, kind: str, *, X_workers, y_workers,
                    w0=None, X_full=None, y_full=None, X_test=None,
@@ -137,10 +163,17 @@ class Problem:
                    device=None) -> "Problem":
         """A problem over arrays made elsewhere (anything ``np.asarray``
         takes), copied to float32 tensors on ``device`` (default the card;
-        raises when none is present unless ``device="cpu"``)."""
+        raises when none is present unless ``device="cpu"``).  The
+        iterate's length is ``w0``'s, else X's last axis (a weight per
+        feature, as in the GLMs), and ``w0`` defaults to zeros; a
+        matrix-factor problem (d·r weights over d features, its zero the
+        strict saddle) must pass its ``w0``."""
         if kind not in _LOSSES:
             raise SpecError(f"problem kind {kind!r} is not one of "
                             f"{sorted(_LOSSES)}")
+        if kind == "matrix_factor" and w0 is None:
+            raise SpecError("a matrix-factor problem needs its start w0: "
+                            "w0 = 0 is the strict saddle itself")
         dev = resolve_device(device)
 
         def t(a):
@@ -150,11 +183,12 @@ class Problem:
                 np.array(a, dtype=np.float32, copy=True)).to(dev)
 
         Xw = t(X_workers)
-        m, _, d = Xw.shape
+        w0 = t(w0)
+        dim = w0.shape[0] if w0 is not None else Xw.shape[-1]
         return cls(
-            spec=spec, kind=kind, loss_fn=_LOSSES[kind], dim=d, m_workers=m,
-            X_workers=Xw, y_workers=t(y_workers),
-            w0=t(w0) if w0 is not None else torch.zeros(d, device=dev),
+            spec=spec, kind=kind, loss_fn=_LOSSES[kind], dim=dim,
+            m_workers=Xw.shape[0], X_workers=Xw, y_workers=t(y_workers),
+            w0=w0 if w0 is not None else torch.zeros(dim, device=dev),
             X_full=t(X_full), y_full=t(y_full), X_test=t(X_test),
             y_test=t(y_test), w_star=t(w_star), saddle_value=saddle_value,
         )
@@ -190,6 +224,9 @@ def problem_dim(spec: str) -> int:
     head, _, arg = spec.partition(":")
     if head in ("synthetic-logistic", "synthetic-regression"):
         return _ints(spec, arg, (4000, 40))[1]
+    if head == "matrix-factor":
+        d, r = _ints(spec, arg, (10, 2))
+        return d * r
     if head in _LATER:
         raise not_ported(f"problem {spec!r}", _LATER[head])
     raise SpecError(
@@ -229,5 +266,24 @@ def make_problem(spec: str, m_workers: int, seed: int = 0,
                        m_workers=m_workers, X_workers=Xw, y_workers=yw,
                        w0=torch.zeros(d, device=dev), X_full=X, y_full=y,
                        w_star=w_star)
+    if head == "matrix-factor":
+        d, r = _ints(spec, arg, (10, 2))
+        n = FACTOR_ROWS
+        U_star = torch.randn((d, r), generator=gen, device=dev)
+        X = (torch.randn((m_workers, n, r), generator=gen, device=dev)
+             @ U_star.T)
+        X = X + 0.01 * torch.randn((m_workers, n, d), generator=gen,
+                                   device=dev)
+        y = torch.zeros(X.shape[:2], device=dev)
+        Xf = X.reshape(-1, d)
+        # start NEXT to the strict saddle U = 0
+        w0 = 1e-3 * torch.randn((d * r,), generator=gen, device=dev)
+        return Problem(
+            spec=spec, kind="matrix_factor", loss_fn=factor_loss, dim=d * r,
+            m_workers=m_workers, X_workers=X, y_workers=y, w0=w0,
+            X_full=Xf, y_full=y.reshape(-1),
+            saddle_value=float(factor_loss(torch.zeros(d * r, device=dev),
+                                           Xf, None)),
+        )
     problem_dim(spec)  # raises: a later slice's problem, or unknown
     raise SpecError(f"unknown problem spec {spec!r}")

@@ -104,7 +104,8 @@ class VectorChannel:
                  measure: bool = False, per_sender: bool = False):
         """One round: compress/EF every sender's vector, reconstruct at the
         receiver, inject Byzantine payloads (when an ``attack_generator``
-        is given).  Returns ``(x̂, state')`` — or ``(x̂, state', δ̂)`` with
+        is given).  ``generator`` feeds a random compressor (random-k draws
+        every sender's index set from it).  Returns ``(x̂, state')`` — or ``(x̂, state', δ̂)`` with
         ``measure=True``, δ̂ measured BEFORE Byzantine injection; with
         ``per_sender=True`` also the (n_senders,) per-sender δ̂."""
         x_sent = x
@@ -140,7 +141,8 @@ class VectorChannel:
                         measure: bool = False, per_sender: bool = False):
         """Payload-shaped receive: hand the receiver the wire payloads —
         values ``(m, k)`` and int32 indices ``(m, k)`` — instead of m dense
-        ``(d,)`` vectors.  Returns ``((vals, idx), state')`` (δ̂ appended
+        ``(d,)`` vectors (random-k draws its index sets from
+        ``generator``).  Returns ``((vals, idx), state')`` (δ̂ appended
         under ``measure=True``, from the payload norms: with distinct
         indices ‖C(x)‖² = Σ vals²).  The wire and ``bits_per_round`` are
         those of :meth:`transmit`."""

@@ -15,6 +15,8 @@ each row on its own, so a channel compresses all m senders in one call
 """
 from __future__ import annotations
 
+SCALE_BITS = 32   # one float32 value or scale on the wire
+
 
 class Compressor:
     """Base class: subclasses implement compress/decompress/wire_bits."""
@@ -32,6 +34,11 @@ class Compressor:
 
     def wire_bits(self, d: int) -> int:
         """Exact payload size in bits of one d-vector (static)."""
+        raise NotImplementedError
+
+    def delta_bound(self, d: int) -> float:
+        """Guaranteed δ with ‖C(x) − x‖² ≤ (1 − δ)‖x‖² (in expectation for
+        a random compressor)."""
         raise NotImplementedError
 
     def roundtrip(self, x, *, generator=None):
@@ -56,6 +63,9 @@ class Identity(Compressor):
 
     def wire_bits(self, d):
         return d * self.value_bits
+
+    def delta_bound(self, d):
+        return 1.0
 
 
 def index_bits(d: int) -> int:

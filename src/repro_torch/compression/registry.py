@@ -1,5 +1,5 @@
 """Compressor registry: spec strings → Compressor instances (the port of
-the reference's ``compression/registry.py`` for this slice):
+the reference's ``compression/registry.py``):
 
     "none"          identity (full precision)
     "topk:0.1"      top-k, k = max(1, round(0.1·d))   (ratio form)
@@ -9,9 +9,10 @@ the reference's ``compression/registry.py`` for this slice):
     "adaptive_topk:<k_min>:<k_max>"         top-k with a host-side k
                                             schedule (defaults 0.05 : 0.5)
     "adaptive_topk_kernel:<k_min>:<k_max>"  the same through the kernels
-
-The reference's other heads (randk, signnorm, int8) are a later slice and
-raise :class:`NotImplementedError`.
+    "randk:0.1"     random-k (same k grammar)
+    "signnorm"      scaled sign, 1 bit/coordinate
+    "int8"          block-wise int8, block = 128
+    "int8:64"       block-wise int8, block = 64
 """
 from __future__ import annotations
 
@@ -19,12 +20,12 @@ from typing import Optional, Union
 
 from .adaptive import AdaptiveTopK
 from .base import Compressor, Identity
-from .sparsify import TopK
+from .quant import BlockInt8
+from .sign import SignNorm
+from .sparsify import RandomK, TopK
 
-COMPRESSORS = ("none", "topk", "topk_kernel", "adaptive_topk",
-               "adaptive_topk_kernel")
-_LATER = {"randk": "Queue 1b item B2", "signnorm": "Queue 1b item B2",
-          "int8": "Queue 1b item B2"}
+COMPRESSORS = ("none", "topk", "topk_kernel", "randk", "signnorm", "int8",
+               "adaptive_topk", "adaptive_topk_kernel")
 
 
 def _resolve_k(arg: str, d: int) -> int:
@@ -47,17 +48,18 @@ def make_compressor(
     if head in ("topk", "topk_kernel"):
         k = _resolve_k(arg or "0.1", d)
         return TopK(k, use_kernel=head == "topk_kernel")
+    if head == "randk":
+        return RandomK(_resolve_k(arg or "0.1", d))
     if head in ("adaptive_topk", "adaptive_topk_kernel"):
         lo, _, hi = arg.partition(":")
         k_min = _resolve_k(lo or "0.05", d)
         k_max = _resolve_k(hi or "0.5", d)
         return AdaptiveTopK(d, min(k_min, k_max), max(k_min, k_max),
                             use_kernel=head == "adaptive_topk_kernel")
-    if head in _LATER:
-        raise NotImplementedError(
-            f"compressor {spec!r} is not ported to repro_torch yet -- "
-            f"ROADMAP.md {_LATER[head]}"
-        )
+    if head == "signnorm":
+        return SignNorm()
+    if head == "int8":
+        return BlockInt8(int(arg) if arg else 128)
     raise ValueError(
         f"unknown compressor spec {spec!r}; expected one of {COMPRESSORS}"
     )

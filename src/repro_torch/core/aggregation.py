@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from .._device import div_exact
 from ..kernels.robust_agg import (
     krum_scores_plain,
     median_of_sorted,
@@ -43,7 +44,7 @@ def norm_trim(updates, beta: float):
     flat = updates.reshape(m, -1)
     keep, n_keep = norm_trim_keep(torch.linalg.vector_norm(flat, dim=1), beta)
     keep = keep.to(updates.dtype)
-    agg = (keep[:, None] * flat).sum(0) / n_keep
+    agg = div_exact((keep[:, None] * flat).sum(0), n_keep)
     return agg.reshape(updates.shape[1:]), keep
 
 

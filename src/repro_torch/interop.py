@@ -34,7 +34,7 @@ def to_tensor(a, device=None, dtype=torch.float32) -> torch.Tensor:
 
 def problem_from_reference(ref, device=None) -> Problem:
     """The reference's ``Problem`` (any object with its attributes) → the
-    port's, over the same arrays."""
+    port's, over the same arrays, with its start and saddle value."""
     arrays = {name: getattr(ref, name, None) for name in _PROBLEM_ARRAYS}
     return Problem.from_numpy(ref.spec, ref.kind, device=device,
                               saddle_value=getattr(ref, "saddle_value", None),

@@ -12,6 +12,7 @@ from repro.api import make_aggregator as jax_make_aggregator
 from repro.api.aggregators import AGGREGATOR_SPECS as JAX_AGGREGATOR_SPECS
 from repro.api import make_attack as jax_make_attack
 from repro.kernels.ref import sparse_aggregate_ref
+from repro_torch._device import div_exact
 from repro_torch.api import (
     AGGREGATOR_SPECS,
     SpecError,
@@ -83,6 +84,26 @@ def test_aggregate_sparse_matches_reference_oracle_and_raises_above_bound():
     out = aggregate_sparse(torch.from_numpy(vals), torch.from_numpy(idx), d,
                            weights=torch.from_numpy(np.round(w)))
     np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+
+
+@pytest.mark.parametrize("n", [1, 13, 127, 300, 400])
+def test_division_by_a_count_is_the_quotient(n):
+    """``div_exact`` (the center's division by the number of rows it
+    averages) gives numpy's correctly rounded float32 quotient bit for bit,
+    and the sparse norm_trim aggregate is its kept sum divided so."""
+    x = _updates(1, 10_000, n)[0]
+    got = div_exact(torch.from_numpy(x), n).numpy()
+    np.testing.assert_array_equal(got.view(np.int32),
+                                  (x / np.float32(n)).view(np.int32))
+    vals = _updates(8, 5, n)
+    idx = np.tile(np.arange(5, dtype=np.int32), (8, 1))
+    agg, keep = make_aggregator("norm_trim:0.3").sparse(
+        torch.from_numpy(vals), torch.from_numpy(idx), 5)
+    kept = aggregate_sparse(torch.from_numpy(vals), torch.from_numpy(idx), 5,
+                            keep).numpy()
+    np.testing.assert_array_equal(
+        agg.numpy().view(np.int32),
+        (kept / np.float32(keep.sum())).view(np.int32))
 
 
 def test_registry_grammar_and_later_slices():

@@ -19,14 +19,22 @@ from repro_torch.kernels import LAUNCHES, cubic_solve, cubic_solve_plain
 torch.set_num_threads(1)
 
 # benchmarks/baselines/BENCH_table1_compression.json (a9a, m = 20) and the
-# slice's w8a spec, as the reference computes them
+# w8a specs, as the reference computes them
 PINNED = [
     ("a9a-logistic", None, 78720, 3936),
     ("a9a-logistic", "topk:0.1", 9360, 3936),
     ("a9a-logistic", "topk_kernel:0.1", 9360, 3936),
     ("w8a-logistic", "topk:0.1", 24600, 9600),
     ("w8a-logistic", "topk_kernel:0.1", 24600, 9600),
+    ("a9a-logistic", "signnorm", 3100, 3936),
+    ("a9a-logistic", "int8", 20320, 3936),
+    ("w8a-logistic", "signnorm", 6640, 9600),
+    ("w8a-logistic", "int8", 49920, 9600),
+    ("w8a-logistic", "randk:0.1", 19840, 9600),
 ]
+# the baseline's 4-round a9a totals (its "<spec>.uplink_bits" and
+# "<spec>.downlink_bits")
+TABLE1_TOTALS = {"signnorm": (12400, 15744), "int8": (81280, 15744)}
 
 
 @pytest.mark.parametrize("problem,compressor,up,down", PINNED)
@@ -42,6 +50,34 @@ def test_bits_per_round_pinned_to_reference_integers(problem, compressor,
     bits = algo.bits_per_step()
     assert bits == {"uplink": up, "downlink": down}
     assert all(type(v) is int for v in bits.values())
+
+
+@pytest.mark.parametrize("compressor", sorted(TABLE1_TOTALS))
+def test_table1_compression_run_matches_reference(compressor):
+    """``benchmarks/table1_communication.py``'s compression spec on a9a
+    (robust regression, m = 20, norm_trim at β = 0.1, EF21, no attack),
+    4 rounds to its gradient tolerance, in both packages over the
+    reference's arrays: the loss trajectory within rtol 1e-5 (float32 sums
+    in another order) and the ledger's integers exactly, the baseline's."""
+    from repro.api import ExperimentSpec as JaxSpec
+
+    jspec = JaxSpec(problem="a9a-robust", M=10.0, eta=1.0,
+                    aggregator="norm_trim:0.1", attack="none", alpha=0.0,
+                    compressor=compressor, downlink_compressor=None, seed=0)
+    jexp = jspec.build()
+    jw, jhist = jexp.run(4, grad_tol=0.02)
+    exp = ExperimentSpec.from_dict(jspec.to_dict()).build(
+        device="cpu",
+        problem=interop.problem_from_reference(jexp.problem, device="cpu"))
+    tw, thist = exp.run(4, grad_tol=0.02)
+    assert thist["rounds"] == jhist["rounds"] == 4
+    np.testing.assert_allclose(thist["loss"], jhist["loss"], rtol=1e-5)
+    np.testing.assert_allclose(tw.numpy(), np.asarray(jw), atol=1e-5)
+    for key in ("uplink_bits", "downlink_bits", "total_bits",
+                "bits_cumulative"):
+        assert thist[key] == jhist[key], key
+    assert (thist["uplink_bits"], thist["downlink_bits"]) == \
+        TABLE1_TOTALS[compressor]
 
 
 def test_none_compressor_spec_bills_full_precision():

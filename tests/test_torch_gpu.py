@@ -6,6 +6,7 @@ suite's conftest imports jax, which the port does not need):
 ``PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_gpu.py``."""
 import math
 
+import numpy as np
 import pytest
 import torch
 
@@ -244,8 +245,8 @@ def test_cubic_kernel_raises_on_what_it_cannot_serve(cuda):
         cubic_solve(g, torch.zeros(2, 3, 3, device=cuda, dtype=torch.float64))
 
 
-@pytest.mark.parametrize("m,d", [(3, 1), (20, 300), (33, 513), (300, 300),
-                                 (256, 4096), (32, 131072)])
+@pytest.mark.parametrize("m,d", [(3, 1), (10, 20), (20, 300), (33, 513),
+                                 (300, 300), (256, 4096), (32, 131072)])
 def test_sort_workers_kernel_equals_plain_bitwise(cuda, m, d):
     """Bit for bit, ±0 in worker order and NaN last, on the card and
     against the CPU's stable sort."""
@@ -266,8 +267,8 @@ def test_sort_workers_kernel_equals_plain_bitwise(cuda, m, d):
     assert LAUNCHES["sort_workers"] == before + 3
 
 
-@pytest.mark.parametrize("m,d", [(3, 1), (20, 300), (33, 513), (256, 4096),
-                                 (32, 131072)])
+@pytest.mark.parametrize("m,d", [(3, 1), (10, 20), (20, 300), (33, 513),
+                                 (256, 4096), (32, 131072)])
 def test_krum_kernel_matches_plain(cuda, m, d):
     """Scores within rtol 1e-5 (distances summed in another order); exact
     on an integer stack, whose sums are exact in float32."""
@@ -490,3 +491,111 @@ def test_flash_attention_raises_on_other_head_widths(cuda, dtype):
     with pytest.raises(ValueError, match="Queue 2 item K2"):
         attention_bshd(q, q, q)
     assert LAUNCHES["flash_attention"] == before
+
+
+# The other compressors and the matrix-factor problem on the card: plain
+# PyTorch (the reference has no kernel for them), held against the CPU
+
+@pytest.mark.parametrize("d", [1, 129, 300, 5000])
+def test_sign_and_int8_compressors_on_the_card_match_the_cpu(cuda, d):
+    """Block int8 bit for bit; scaled sign's signs bit for bit and its ℓ₁
+    scale within 4 ulps (the sum runs in another order on the card)."""
+    from repro_torch.compression import BlockInt8, SignNorm
+
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    x = torch.randn(20, d, generator=gen, device=cuda)
+    x[1] = 0.0
+    for comp in (BlockInt8(128), BlockInt8(64)):
+        got, want = comp.compress(x), comp.compress(x.cpu())
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b)
+        assert torch.equal(comp.decompress(got, d).cpu(),
+                           comp.decompress(want, d))
+    (signs, scale), (csigns, cscale) = (SignNorm().compress(x),
+                                        SignNorm().compress(x.cpu()))
+    assert torch.equal(signs.cpu(), csigns)
+    spacing = torch.from_numpy(np.spacing(cscale.numpy()))
+    assert bool(((scale.cpu() - cscale).abs() <= 4 * spacing).all())
+
+
+def test_randk_on_the_card_feeds_the_sparse_center(cuda):
+    """Random-k draws on the card from a CUDA generator: k distinct sorted
+    indices a row, the values at them; norm_trim's keep over those payloads
+    equals the CPU's, and both the sparse center's kept sum and norm_trim's
+    aggregate (that sum divided by the number kept) the CPU's bit for bit,
+    one launch a call."""
+    from repro_torch.api import make_aggregator
+    from repro_torch.compression import RandomK
+
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(20, 300, generator=gen, device=cuda)
+    vals, idx = RandomK(30).compress(x, generator=gen)
+    assert vals.device.type == "cuda" and tuple(idx.shape) == (20, 30)
+    assert bool((idx[:, 1:] > idx[:, :-1]).all())
+    assert bool(((idx >= 0) & (idx < 300)).all())
+    assert torch.equal(vals, x.gather(1, idx))
+    idx = idx.to(torch.int32)
+    before = LAUNCHES["sparse_agg"]
+    agg, keep = make_aggregator("norm_trim:0.3").sparse(vals, idx, 300)
+    total = aggregate_sparse(vals, idx, 300, keep)
+    assert LAUNCHES["sparse_agg"] == before + 2
+    cagg, ckeep = make_aggregator("norm_trim:0.3").sparse(vals.cpu(),
+                                                          idx.cpu(), 300)
+    assert torch.equal(keep.cpu(), ckeep)
+    want = aggregate_sparse_plain(vals.cpu(), idx.cpu(), 300, ckeep)
+    assert torch.equal(total.cpu().view(torch.int32), want.view(torch.int32))
+    assert torch.equal(agg.cpu().view(torch.int32), cagg.view(torch.int32))
+
+
+@pytest.mark.parametrize("n", [13, 127, 300, 400])
+def test_division_by_a_count_on_the_card_matches_the_cpu(cuda, n):
+    """``div_exact`` divides on the card as the CPU does, bit for bit (a
+    plain ``t / n`` there is a product with 1/n, one ulp off for a share
+    of values), on its own and in the sparse mean and the GLM Hessians."""
+    from repro_torch._device import div_exact
+    from repro_torch.api import make_aggregator
+    from repro_torch.api.problems import logistic_hessians
+
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    x = torch.randn(100_000, generator=gen, device=cuda)
+    assert torch.equal(div_exact(x, n).cpu().view(torch.int32),
+                       div_exact(x.cpu(), n).view(torch.int32))
+    vals = torch.randn(n, 4, generator=gen, device=cuda)
+    idx = torch.arange(4, dtype=torch.int32, device=cuda).repeat(n, 1)
+    got, _ = make_aggregator("mean").sparse(vals, idx, 8)
+    want, _ = make_aggregator("mean").sparse(vals.cpu(), idx.cpu(), 8)
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+    # integer features and labels: the Hessians' sums are exact in float32
+    # on both, so only the division by the n rows could tell them apart
+    X = torch.randint(-2, 3, (2, n, 6), generator=gen, device=cuda).float()
+    y = torch.randint(0, 2, (2, n), generator=gen, device=cuda).float()
+    w = torch.zeros(6, device=cuda)
+    assert torch.equal(logistic_hessians(X, y, w).cpu().view(torch.int32),
+                       logistic_hessians(X.cpu(), y.cpu(), w.cpu())
+                       .view(torch.int32))
+
+
+def test_matrix_factor_hessians_on_the_card_match_the_cpu(cuda):
+    """The vmap(hessian) fallback serves factor_loss on the card: the
+    workers' gradients and 20 × 20 Hessians within 1e-5 of the CPU's
+    (relative to their largest entry), and a round launches one cubic
+    solve."""
+    from repro_torch import interop
+    from repro_torch.api import ExperimentSpec
+
+    spec = ExperimentSpec(problem="matrix-factor:10:2", m_workers=10)
+    cpu = spec.build(device="cpu")
+    card = spec.build(problem=interop.problem_from_reference(cpu.problem,
+                                                             device=cuda))
+    for exp in (cpu, card):
+        exp.algo._ensure_channels(exp.problem.dim, exp.problem.m_workers)
+    p, cp = card.problem, cpu.problem
+    w = 0.3 * torch.ones(20)
+    for fn in ("_worker_grads", "_worker_hessians"):
+        got = getattr(card.algo, fn)(w.to(cuda), p.X_workers, p.y_workers)
+        want = getattr(cpu.algo, fn)(w, cp.X_workers, cp.y_workers)
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-5,
+                                   atol=1e-5 * float(want.abs().max()))
+    before = LAUNCHES["cubic_solve"]
+    card.algo.step(p.w0, p.X_workers, p.y_workers)
+    assert LAUNCHES["cubic_solve"] == before + 1

@@ -90,7 +90,11 @@ def test_problem_twins_have_the_reference_shapes(spec, m):
 def test_problem_catalog_rejects_and_defers():
     with pytest.raises(SpecError):
         problem_dim("no-such-problem")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        problem_dim("matrix-factor:10:2")
+    # matrix-factor is ported: its dim is d·r, as the reference's
+    assert problem_dim("matrix-factor:10:2") == 20
+    assert problem_dim("matrix-factor:12:3") == 36
+    assert problem_dim("matrix-factor") == 20
+    with pytest.raises(SpecError, match="integers"):
+        problem_dim("matrix-factor:ten")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         make_problem("quadratic:8", 4, device="cpu")

@@ -107,18 +107,44 @@ def test_spec_round_trips_and_validates():
         ExperimentSpec.from_dict({"no_such_field": 1})
 
 
-@pytest.mark.parametrize("override", [
-    {"runtime": "async"}, {"runtime": "mesh"},
-    {"solver": "byzantine_pgd"}, {"compressor": "randk:0.1"},
-    {"compressor": "signnorm"}, {"compressor": "int8"},
-    {"problem": "matrix-factor:10:2", "m_workers": 4},
-    {"compressor": "randk:32"},
-])
-def test_specs_outside_the_slice_name_their_roadmap_item(override):
+# each case names the ROADMAP.md item that would port it: the solvers
+# (Queue 1 item 10), the async runtime (item 11), the mesh runtime and its
+# quadratic problem (item 13)
+@pytest.mark.parametrize("override,item", [
+    ({"runtime": "async"}, "item 11"), ({"runtime": "mesh"}, "item 13"),
+    ({"solver": "byzantine_pgd"}, "item 10"),
+    ({"solver": "compressed_sgd"}, "item 10"),
+    ({"solver": "byzantine_pgd:2:3"}, "item 10"),
+    ({"problem": "quadratic:8", "m_workers": 4}, "item 13"),
+    ({"runtime": "mesh", "compressor": "int8"}, "item 13"),
+    ({"runtime": "async", "compressor": "randk:0.1"}, "item 11"),
+], ids=[f"override{i}" for i in range(8)])
+def test_specs_outside_the_slice_name_their_roadmap_item(override, item):
     spec = ExperimentSpec(problem="a9a-logistic", m_workers=20,
                           compressor="topk_kernel:0.1").replace(**override)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 {item}"):
         spec.validate()
+
+
+@pytest.mark.parametrize("override", [
+    {"compressor": "randk:0.1"}, {"compressor": "signnorm"},
+    {"compressor": "int8"}, {"problem": "matrix-factor:10:2", "m_workers": 4},
+    {"compressor": "randk:32"},
+])
+def test_specs_the_compressor_and_saddle_slice_ports_validate_and_build(
+        override):
+    """Random-k, scaled sign, block int8 and the matrix-factor problem raised
+    in the earlier slices; each now validates, builds and runs a round on
+    the CPU, billing the reference's bits."""
+    spec = ExperimentSpec(problem="a9a-logistic", m_workers=20,
+                          compressor="topk_kernel:0.1").replace(**override)
+    exp = spec.validate().build(device="cpu")
+    w, hist = exp.run(1)
+    assert tuple(w.shape) == (exp.problem.dim,)
+    assert bool(torch.isfinite(w).all())
+    ref = JaxSpec(**spec.to_dict()).build()
+    ref.algo._ensure_channels(ref.problem.dim, ref.problem.m_workers)
+    assert exp.algo.bits_per_step() == ref.algo.bits_per_step()
 
 
 @pytest.mark.parametrize("override", [
